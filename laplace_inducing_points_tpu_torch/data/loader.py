@@ -1,0 +1,67 @@
+"""Numpy minibatch pipeline.
+
+Counterpart of ``laplace_inducing_points_tpu/data/loader.py:29-93``
+(``ArrayDataset``, ``DataLoader``, ``make_dataloaders``). Batches stay numpy
+on the host; the evaluation harness moves each one to the model's device.
+Shuffles use numpy's generator, so their order differs from the JAX
+package's native shuffle.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Optional
+
+import numpy as np
+
+
+class ArrayDataset:
+    """In-memory (x, y) dataset."""
+
+    def __init__(self, x, y):
+        self.x = np.asarray(x)
+        self.y = np.asarray(y)
+        if len(self.x) != len(self.y):
+            raise ValueError(f"{len(self.x)} inputs but {len(self.y)} targets")
+
+    def __len__(self):
+        return len(self.x)
+
+
+class DataLoader:
+    """Minibatch iterator over an ArrayDataset; ``drop_last`` keeps batch
+    shapes fixed."""
+
+    def __init__(self, dataset: ArrayDataset, batch_size: int,
+                 shuffle: bool = False, drop_last: bool = True, seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        n = len(self.dataset)
+        idx = self._rng.permutation(n) if self.shuffle else np.arange(n)
+        stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
+        for s in range(0, stop, self.batch_size):
+            b = idx[s:s + self.batch_size]
+            yield self.dataset.x[b].astype(np.float32, copy=False), self.dataset.y[b]
+
+
+def make_dataloaders(train: ArrayDataset, test: ArrayDataset,
+                     val: Optional[ArrayDataset], batch_size: int, seed: int = 0):
+    """Train keeps ``drop_last`` (when it has a full batch); evaluation
+    loaders keep the tail batch."""
+    train_loader = DataLoader(train, batch_size, shuffle=True, seed=seed,
+                              drop_last=len(train) >= batch_size)
+    test_loader = DataLoader(test, batch_size, shuffle=False, drop_last=False)
+    if val is None:
+        return train_loader, test_loader
+    val_loader = DataLoader(val, batch_size, shuffle=False, drop_last=False)
+    return train_loader, test_loader, val_loader

@@ -1,0 +1,121 @@
+"""Posterior weight sampling through the Gram's eigendecomposition.
+
+Counterpart of ``laplace_inducing_points_tpu/inference/sample.py``:
+``_g_weights`` (``:41``), ``inv_matsqrt_gram`` (``:64``),
+``apply_inv_matsqrt_rows`` (``:73``), the materialized branch of
+``make_inv_matsqrt`` (``:87-115``), ``inv_matsqrt_dense`` (``:357``) and
+``sample`` (``:370``) for ``gram_eigh`` and ``dense``. The matrix-free
+branch, the Lanczos and the Matheron samplers wait for later slices (ROADMAP,
+Queue A).
+
+Draws ``δθ ~ N(0, S⁻¹)`` with ``S = αI + β W Wᵀ`` by applying ``S^{-1/2}`` to
+standard normal noise. With ``G = WᵀW = V Λ Vᵀ`` (``d×d``, d = M·K):
+
+    S^{-1/2} ε = α^{-1/2} ε + W V diag(g(λ)) Vᵀ (Wᵀ ε),
+    g(λ) = ((α + βλ)^{-1/2} − α^{-1/2}) / λ   for λ > tol,  else 0.
+
+With the rows ``R = Wᵀ (d, D)`` materialized, the two long contractions are
+``ε Rᵀ`` (the ``matmul_nt`` kernel) and ``(·) R`` (``matmul_nn``), and the
+Gram is ``syrk(R)``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+
+from laplace_inducing_points_tpu_torch.core import operators as ops
+from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nn, matmul_nt
+from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk
+
+
+def _g_weights(lam: torch.Tensor, alpha: float, beta: float,
+               rank_tol: float = 1e-7,
+               range_clip_min: Optional[float] = None) -> torch.Tensor:
+    """Spectral weights g(λ) with pseudo-inverse thresholding.
+
+    Eigenvalues with ``λ ≤ rank_tol · max(λ_max, 1)`` — the f32 round-off
+    level of softmax-CE null directions, since the Gram has rank ≤ M(K−1) —
+    get weight 0. ``range_clip_min`` clips ``α + βλ`` from below (``1.0``
+    reproduces the reference's monkeypatched sampler); ``None`` gives the
+    exact inverse square root.
+    """
+    lam_max = torch.max(lam)
+    mask = lam > rank_tol * torch.clamp(lam_max, min=1.0)
+    lam_safe = torch.where(mask, lam, torch.ones_like(lam))
+    inner = alpha + beta * lam_safe
+    if range_clip_min is not None:
+        inner = torch.clamp(inner, min=range_clip_min)
+    g = (1.0 / torch.sqrt(inner) - 1.0 / math.sqrt(alpha)) / lam_safe
+    return torch.where(mask, g, torch.zeros_like(g))
+
+
+def inv_matsqrt_gram(gram: torch.Tensor, alpha: float, beta: float,
+                     rank_tol: float = 1e-7,
+                     range_clip_min: Optional[float] = None) -> torch.Tensor:
+    """The spectral core ``V·diag(g)·Vᵀ`` (``d×d``)."""
+    lam, V = torch.linalg.eigh(ops.ensure_symmetry(gram, jitter=0.0))
+    g = _g_weights(lam, alpha, beta, rank_tol, range_clip_min)
+    return (V * g) @ V.T
+
+
+def apply_inv_matsqrt_rows(eps: torch.Tensor, R: torch.Tensor,
+                           core: torch.Tensor, alpha: float) -> torch.Tensor:
+    """``S^{-1/2} Eps`` through the rows and the spectral core.
+
+    ``eps (P, D)``, ``R = Wᵀ (d, D)``, ``core = V diag(g) Vᵀ (d, d)``. All
+    three contractions are true f32: the range-term correction cancels the
+    prior draw along high-curvature directions.
+    """
+    U = matmul_nt(eps, R)                                      # (P, d)
+    return eps / math.sqrt(alpha) + matmul_nn(ops.pdot(U, core.T), R)
+
+
+def make_inv_matsqrt(state, Z: torch.Tensor, alpha: float,
+                     full_set_size: Optional[int] = None,
+                     rank_tol: float = 1e-7,
+                     example_block: Optional[int] = None,
+                     range_clip_min: Optional[float] = None
+                     ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Build ``Eps (P, D) ↦ S^{-1/2} Eps`` for ``S = αI + β W Wᵀ`` from the
+    materialized rows (one vmapped jacrev, the SYRK Gram, one eigh)."""
+    M = Z.shape[0]
+    beta = (full_set_size or M) / M
+    R = ops.dense_wt(state, Z, example_block=example_block)    # (d, D)
+    core = inv_matsqrt_gram(syrk(R), alpha, beta, rank_tol, range_clip_min)
+    return lambda eps: apply_inv_matsqrt_rows(eps, R, core, alpha)
+
+
+def inv_matsqrt_dense(state, Z: torch.Tensor, alpha: float,
+                      full_set_size: Optional[int] = None) -> torch.Tensor:
+    """Dense ``D×D`` twin for tests (small models only)."""
+    M = Z.shape[0]
+    beta = (full_set_size or M) / M
+    R = ops.dense_wt(state, Z)                                 # (d, D)
+    eye = torch.eye(R.shape[1], dtype=R.dtype, device=R.device)
+    S = alpha * eye + beta * ops.pdot(R.T, R)
+    evals, evecs = torch.linalg.eigh(S)
+    return (evecs / torch.sqrt(torch.clamp(evals, min=1e-12))) @ evecs.T
+
+
+def sample(state, Z: torch.Tensor, alpha: float, generator: torch.Generator, *,
+           num_samples: int = 1, full_set_size: Optional[int] = None,
+           method: str = "gram_eigh", **kwargs) -> torch.Tensor:
+    """Draw ``(num_samples, D)`` zero-mean posterior weight perturbations;
+    the noise comes from ``generator`` (on the state's device)."""
+    D = state.flat_params.shape[0]
+    eps = torch.randn(num_samples, D, generator=generator,
+                      device=state.device, dtype=torch.float32)
+    if method == "gram_eigh":
+        apply = make_inv_matsqrt(state, Z, alpha, full_set_size, **kwargs)
+    elif method == "dense":
+        mat = inv_matsqrt_dense(state, Z, alpha, full_set_size)
+        apply = lambda E: ops.pdot(E, mat.T)
+    elif method in ("lanczos", "matheron"):
+        raise NotImplementedError(f"sampling method {method!r} is not ported yet "
+                                  "(ROADMAP, Queue A)")
+    else:
+        raise ValueError(f"unknown sampling method: {method}")
+    return apply(eps)

@@ -1,0 +1,78 @@
+"""Shared builders for the twin tests of the PyTorch port.
+
+A twin test gives the JAX package and the port the same inputs, made once in
+numpy from a seed: a Flax parameter tree converted with
+``params_from_jax``, the same points, the same noise. JAX stays on the CPU.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import torch
+
+from laplace_inducing_points_tpu.models.scale import LeNet5 as JaxLeNet5
+from laplace_inducing_points_tpu.models.state import create_train_state
+from laplace_inducing_points_tpu.models.toy import (SimpleClassifier as JaxClassifier,
+                                                    SimpleRegressor as JaxRegressor)
+from laplace_inducing_points_tpu_torch.core.params import params_from_jax
+from laplace_inducing_points_tpu_torch.models.scale import LeNet5
+from laplace_inducing_points_tpu_torch.models.state import ModelState
+from laplace_inducing_points_tpu_torch.models.toy import SimpleClassifier, SimpleRegressor
+
+TOY_IN = 2          # toy inputs are 2-D points
+LOGVAR = -0.7       # the regressor's observation log-variance in the twins
+
+
+def _numpy_tree(tree, rng: np.random.Generator):
+    """Seeded leaves in the tree's shapes: kernels ~ N(0, 1/fan_in), other
+    leaves (biases, logvar) ~ 0.1·N(0, 1), so every layout is exercised."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict) or hasattr(value, "items"):
+            out[key] = _numpy_tree(dict(value), rng)
+        elif key == "kernel":
+            fan_in = int(np.prod(value.shape[:-1]))
+            out[key] = (rng.standard_normal(value.shape) / np.sqrt(fan_in)).astype(np.float32)
+        else:
+            out[key] = (0.1 * rng.standard_normal(value.shape)).astype(np.float32)
+    return out
+
+
+def make_twins(kind: str, seed: int = 0):
+    """``(jax_state, port_state, numpy_tree)`` holding the same weights.
+
+    ``kind``: ``"classifier"`` (tanh MLP 3×32, 3 classes), ``"regressor"``
+    (GELU MLP 2×16) or ``"lenet5"`` (full width, D = 61,706).
+    """
+    if kind == "classifier":
+        jmodel, tmodel = JaxClassifier(32, 3, 3), SimpleClassifier(32, 3, 3, TOY_IN)
+        dummy, model_kind = jnp.zeros((1, TOY_IN)), "classifier"
+    elif kind == "regressor":
+        jmodel, tmodel = JaxRegressor(16, 2), SimpleRegressor(16, 2, TOY_IN)
+        dummy, model_kind = jnp.zeros((1, TOY_IN)), "regressor"
+    elif kind == "lenet5":
+        jmodel, tmodel = JaxLeNet5(), LeNet5()
+        dummy, model_kind = jnp.zeros((1, 28, 28, 1)), "classifier"
+    else:
+        raise ValueError(kind)
+    jstate = create_train_state(jmodel, jax.random.PRNGKey(0), dummy,
+                                optax.adam(1e-3), model_kind=model_kind)
+    tree = _numpy_tree(dict(jstate.params), np.random.default_rng(seed))
+    if model_kind == "regressor":
+        tree["logvar"] = np.float32(LOGVAR)
+        with torch.no_grad():
+            tmodel.logvar.fill_(LOGVAR)
+    jstate = jstate.replace(params=jax.tree.map(jnp.asarray, tree))
+    flat, _ = params_from_jax(tree)
+    return jstate, ModelState(tmodel, flat, model_kind), tree
+
+
+def inputs(kind: str, n: int, seed: int = 1) -> np.ndarray:
+    """``n`` seeded inputs for the twin of ``kind``."""
+    rng = np.random.default_rng(seed)
+    if kind == "lenet5":
+        return rng.uniform(0.0, 1.0, (n, 28, 28, 1)).astype(np.float32)
+    return rng.standard_normal((n, TOY_IN)).astype(np.float32)
