@@ -121,11 +121,12 @@ def main(argv=None) -> list[dict]:
     print(f"alpha={alpha} ({alpha_src})")
 
     batch_size = opt_cfg["map"]["batch_size"]
-    train_loader, test_loader, _ = get_dataloaders(args.dataset, batch_size,
+    # the train split is read for its size only: no augmentation
+    train_loader, test_loader, _ = get_dataloaders(args.dataset, batch_size, aug=False,
                                                    root=args.data_dir)
     ood_loader = None
     if args.ood_dataset:
-        _, ood_loader, _ = get_dataloaders(args.ood_dataset, batch_size,
+        _, ood_loader, _ = get_dataloaders(args.ood_dataset, batch_size, aug=False,
                                            root=args.data_dir)
     full_set_size = opt_cfg["full_set_size"] or len(train_loader.dataset)
 

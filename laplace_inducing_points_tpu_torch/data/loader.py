@@ -1,10 +1,11 @@
 """Numpy minibatch pipeline.
 
 Counterpart of ``laplace_inducing_points_tpu/data/loader.py:29-93``
-(``ArrayDataset``, ``DataLoader``, ``make_dataloaders``). Batches stay numpy
-on the host; the evaluation harness moves each one to the model's device.
-Shuffles use numpy's generator, so their order differs from the JAX
-package's native shuffle.
+(``ArrayDataset``, ``DataLoader``, ``make_dataloaders``) and ``:158-179``
+(``cycling_batches``, one batch at a time). Batches stay numpy on the host;
+the harness and the trainers move each one to the model's device. Shuffles
+use numpy's generator, so their order differs from the JAX package's native
+shuffle.
 """
 
 from __future__ import annotations
@@ -65,3 +66,15 @@ def make_dataloaders(train: ArrayDataset, test: ArrayDataset,
         return train_loader, test_loader
     val_loader = DataLoader(val, batch_size, shuffle=False, drop_last=False)
     return train_loader, test_loader, val_loader
+
+
+def cycling_batches(loader):
+    """Endless iterator over ``loader``'s batches, restarting it (and so
+    reshuffling it) whenever it runs out."""
+    while True:
+        empty = True
+        for batch in loader:
+            empty = False
+            yield batch
+        if empty:
+            raise ValueError("the loader yields no batch")

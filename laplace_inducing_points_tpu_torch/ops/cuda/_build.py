@@ -92,8 +92,7 @@ def load_library() -> ctypes.CDLL:
 
 def check_matrix(name: str, t: torch.Tensor) -> None:
     """What every kernel takes: a contiguous, non-empty f32 matrix on the CPU
-    or a CUDA device, not requiring grad (the backward passes are not ported
-    yet, and a silent non-differentiable call would lose the gradient)."""
+    or a CUDA device."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
     if t.device.type not in ("cpu", "cuda"):
@@ -106,9 +105,6 @@ def check_matrix(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} is empty: shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError(f"{name} requires grad, but the kernel's backward is "
-                           "not ported yet (ROADMAP, Queue B)")
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -1,8 +1,8 @@
 """Checkpoints: inducing points and run metadata in the JAX package's
 formats, MAP weights as a flat vector.
 
-``save_array``/``load_array``/``load_run_meta`` read and write the same
-npz/json files as
+``save_array``/``load_array``/``save_run_meta``/``load_run_meta`` read and
+write the same npz/json files as
 ``laplace_inducing_points_tpu/utils/checkpoint.py:130-172``, so an inducing
 set written by the JAX package loads as it is. MAP weights are the flat
 vector plus its ``FlatSpec``, written with ``torch.save``; a Flax tree is
@@ -40,6 +40,18 @@ def load_array(ckpt_dir: str, name: str, step: int) -> np.ndarray:
     arr = np.load(fn)["array"]
     print(f"[checkpoint] loaded array '{name}' from {fn}")
     return arr
+
+
+def save_run_meta(ckpt_dir: str, name: str, meta: dict) -> str:
+    """Write small run metadata (the alpha a Z was trained for) as
+    ``{name}_meta.json`` beside the array checkpoints."""
+    path = os.path.abspath(ckpt_dir)
+    os.makedirs(path, exist_ok=True)
+    fn = os.path.join(path, f"{name}_meta.json")
+    with open(fn, "w") as f:
+        json.dump(meta, f)
+    print(f"[checkpoint] saved run meta -> {fn}: {meta}")
+    return fn
 
 
 def load_run_meta(ckpt_dir: str, name: str) -> Optional[dict]:

@@ -100,7 +100,10 @@ def test_port_imports_no_jax():
         "import laplace_inducing_points_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 25, names\n"
+        "assert len(names) >= 29, names\n"
+        "new = {pkg.__name__ + '.' + m for m in ('training.inducing', 'training.map', "
+        "'cli.train_scale')}\n"
+        "assert new <= set(names), sorted(new - set(names))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'laplace_inducing_points_tpu'))\n"
         "assert not bad, bad\n"
@@ -108,7 +111,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    assert int(out.stdout.strip()) >= 29
 
 
 @pytest.mark.parametrize("train", [True, False])

@@ -1,5 +1,6 @@
 """The port's SYRK / NT / NN kernels: plain versions against the JAX Pallas
-kernels, and the wrappers' contract.
+kernels, their gradients against the JAX custom VJPs, and the wrappers'
+contract.
 
 On the CPU the wrappers compute their plain versions; the Pallas kernels run
 in interpret mode, as ``tests/test_syrk.py`` and
@@ -10,6 +11,7 @@ there and skip elsewhere (``python3 chip_smoke.py`` is the full check).
 
 import functools
 
+import jax
 import jax.experimental.pallas as pl
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 from laplace_inducing_points_tpu.ops.pallas import matmul as jmm
 from laplace_inducing_points_tpu.ops.pallas import syrk as jsyrk
 from laplace_inducing_points_tpu_torch.ops.cuda import _build
+from laplace_inducing_points_tpu_torch.ops.cuda import matmul as tmm
 from laplace_inducing_points_tpu_torch.ops.cuda.matmul import (matmul_nn,
                                                                matmul_nn_plain,
                                                                matmul_nt,
@@ -76,6 +79,93 @@ def test_cpu_calls_never_count_launches():
     assert {name: fn.launches for name, fn in WRAPPERS.items()} == before
 
 
+def test_cpu_backward_never_counts_launches():
+    before = {name: fn.backward_launches for name, fn in WRAPPERS.items()}
+    A = torch.randn(5, 40, requires_grad=True)
+    B = torch.randn(7, 40, requires_grad=True)
+    W = torch.randn(40, 7, requires_grad=True)
+    (syrk(A).sum() + matmul_nt(A, B).sum() + matmul_nn(A, W).sum()).backward()
+    assert A.grad is not None and B.grad is not None and W.grad is not None
+    assert {name: fn.backward_launches for name, fn in WRAPPERS.items()} == before
+
+
+# --- gradients: each Function's VJP against the JAX custom VJP, the Pallas
+# forward in interpret mode. rtol 1e-5 / atol 1e-4 as for the forward: the
+# cotangent products contract at most 70 terms here, summed in another order.
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    """Run the JAX custom VJPs over the Pallas kernels in interpret mode."""
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call,
+                                                             interpret=True))
+    monkeypatch.setattr(jsyrk, "_syrk_pallas", jsyrk._syrk_pallas.__wrapped__)
+    monkeypatch.setattr(jmm, "_matmul_nt_pallas", jmm._matmul_nt_pallas.__wrapped__)
+    monkeypatch.setattr(jmm, "_matmul_nn_pallas", jmm._matmul_nn_pallas.__wrapped__)
+
+
+def _vjps(jax_fn, torch_fn, inputs, ct):
+    """(JAX cotangents, port cotangents) of the same inputs and cotangent."""
+    out, pull = jax.vjp(jax_fn, *(jnp.asarray(a) for a in inputs))
+    ref = [np.asarray(g) for g in pull(jnp.asarray(ct))]
+    leaves = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    got = torch.autograd.grad(torch_fn(*leaves), leaves, torch.from_numpy(ct))
+    np.testing.assert_allclose(torch_fn(*leaves).detach().numpy(), np.asarray(out),
+                               rtol=1e-5, atol=1e-4)
+    return ref, [g.numpy() for g in got]
+
+
+@pytest.mark.parametrize("shape", [(16, 64), (24, 70), (8, 32)])
+def test_syrk_vjp_matches_jax(interpret_pallas, shape):
+    A, ct = _randn(*shape, seed=5), _randn(shape[0], shape[0], seed=6)
+    ref, got = _vjps(lambda a: jsyrk._syrk_diff(a, 8, 32), syrk, [A], ct)
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("m,n,D", [(16, 8, 64), (13, 21, 70), (8, 8, 32)])
+def test_matmul_nt_vjp_matches_jax(interpret_pallas, m, n, D):
+    A, B, ct = _randn(m, D, seed=7), _randn(n, D, seed=8), _randn(m, n, seed=9)
+    ref, got = _vjps(lambda a, b: jmm._matmul_nt_diff(a, b, 8, 8, 32), matmul_nt,
+                     [A, B], ct)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("m,z,D", [(16, 8, 64), (11, 19, 75)])
+def test_matmul_nn_vjp_matches_jax(interpret_pallas, m, z, D):
+    A, B, ct = _randn(m, z, seed=10), _randn(z, D, seed=11), _randn(m, D, seed=12)
+    ref, got = _vjps(lambda a, b: jmm._matmul_nn_diff(a, b, 8, 32, 8), matmul_nn,
+                     [A, B], ct)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("need_a,need_b", [(True, False), (False, True)])
+@pytest.mark.parametrize("name", ["matmul_nt", "matmul_nn"])
+def test_backward_computes_only_the_gradients_asked_for(name, need_a, need_b):
+    """The cross-Gram's rows Rx never require grad: their cotangent product
+    (a long contraction) must not run at all."""
+    vjp = {"matmul_nt": tmm.matmul_nt_vjp, "matmul_nn": tmm.matmul_nn_vjp}[name]
+    A, B = _args(name, torch.randn(4, 6))
+    C = WRAPPERS[name](A, B)
+    dA, dB = vjp(A, B, torch.randn_like(C), need_a, need_b)
+    assert (dA is None) != need_a and (dB is None) != need_b
+    a = A.clone().requires_grad_(need_a)
+    b = B.clone().requires_grad_(need_b)
+    WRAPPERS[name](a, b).sum().backward()
+    assert (a.grad is None) != need_a and (b.grad is None) != need_b
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_backward_refuses_double_differentiation(name):
+    """The backward runs the kernels, which record no graph: asking for a
+    second derivative raises instead of returning a silent zero."""
+    A = torch.randn(4, 6, requires_grad=True)
+    args = (A,) + _args(name, A)[1:]
+    (g,) = torch.autograd.grad(WRAPPERS[name](*args).square().sum(), A, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        g.sum().backward()
+
+
 def _args(name, A):
     """Valid companions for a first operand ``A`` of wrapper ``name``."""
     if name == "syrk":
@@ -86,7 +176,6 @@ def _args(name, A):
 
 
 BAD_INPUTS = {
-    "requires_grad": (lambda: torch.randn(4, 6, requires_grad=True), RuntimeError, "grad"),
     "float64": (lambda: torch.randn(4, 6, dtype=torch.float64), TypeError, "float32"),
     "non_contiguous": (lambda: torch.randn(6, 4).T, ValueError, "contiguous"),
     "rank_3": (lambda: torch.randn(2, 4, 6), ValueError, "matrix"),
@@ -145,3 +234,25 @@ def test_kernel_matches_plain_on_cuda(name, shapes):
     torch.cuda.synchronize()
     assert WRAPPERS[name].launches == before + 1
     torch.testing.assert_close(got, plain(*args), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shapes", [
+    ("syrk", [(77, 301)]),
+    ("matmul_nt", [(13, 333), (70, 333)]),
+    ("matmul_nn", [(13, 45), (45, 1001)]),
+])
+def test_backward_matches_plain_on_cuda(name, shapes):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (run python3 chip_smoke.py there)")
+    plain = {"syrk": syrk_plain, "matmul_nt": matmul_nt_plain,
+             "matmul_nn": matmul_nn_plain}[name]
+    args = [torch.randn(*s, device="cuda", requires_grad=True) for s in shapes]
+    out = WRAPPERS[name](*args)
+    ct = torch.randn_like(out)
+    before = WRAPPERS[name].backward_launches
+    got = torch.autograd.grad(out, args, ct)
+    torch.cuda.synchronize()
+    assert WRAPPERS[name].backward_launches == before + (1 if name == "syrk" else 2)
+    for g, r in zip(got, torch.autograd.grad(plain(*args), args, ct)):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-4)
