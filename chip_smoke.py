@@ -32,7 +32,22 @@ exits non-zero without printing a result:
    Z step;
 8. gradient agreement: one Z step's KL and dL/dZ through the kernels, through
    the plain versions and through a float64 evaluation of the Gram algebra
-   (same rows).
+   (same rows);
+9. the GGN probe sweep (TF32 tensor cores) against its plain FP32 version,
+   against two cuBLAS TF32 products and against float64, at the stochastic
+   objective's shapes (V (240, 61706), R (1280, 61706), scale 468.75), the
+   residual sweep's P = 16 and a ragged shape; its gradient in V against
+   float64 autograd; CUDA-event times;
+10. stochastic path: ``cli.train_scale.main train_inducing --objective
+    stochastic`` on phase 7's MAP weights (the config as shipped: 256 probes,
+    1 SLQ probe, 200 Krylov steps; only ip.epochs cut to 3), then
+    ``cli.evaluate.main`` on its Z; checks finite losses and metrics, that Z
+    moved and that every forward and backward kernel was launched (B3's own
+    backward included); Z s/step, a warm step's split and its peak memory;
+11. estimator agreement: one stochastic Z step's KL and dL/dZ on the same
+    probes through the kernels, through the kernels with the FP32 sweep,
+    through the plain versions and in float64, beside the spread of the
+    estimator over four probe draws.
 
 The line before the last is the card's ``nvidia-smi`` line; the one before
 it is the per-kernel JSON; the last line is ``{"ok": true, "device": ...}``.
@@ -40,6 +55,7 @@ it is the per-kernel JSON; the last line is ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -55,7 +71,8 @@ SEED = 20261016
 REL_TOL = 1e-4          # kernel vs plain, relative Frobenius
 F64_RATIO = 2.0         # kernel's f64 error may be at most this times the plain's
 FP32_FLOPS = 67e12      # H100 SXM FP32 (FFMA) peak, FLOP/s
-TF32X3_FLOPS = 495e12 / 3   # three TF32 tensor-core passes per FP32 product
+TF32_FLOPS = 495e12     # H100 SXM dense TF32 tensor-core peak, FLOP/s
+TF32X3_FLOPS = TF32_FLOPS / 3   # three TF32 tensor-core passes per FP32 product
 HBM_BYTES = 3.35e12     # H100 SXM HBM3, bytes/s
 
 
@@ -225,12 +242,15 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "matmul_nn": ("laplace_inducing_points_tpu_torch/csrc/matmul.cu",
                   "laplace_inducing_points_tpu/ops/pallas/matmul.py:153"),
 }
+SERVING_KERNELS = ("syrk", "matmul_nt", "matmul_nn")
 
 
 def _wrappers() -> dict:
     from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nn, matmul_nt
+    from laplace_inducing_points_tpu_torch.ops.cuda.sweep import ggn_sweep
     from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk
-    return {"syrk": syrk, "matmul_nt": matmul_nt, "matmul_nn": matmul_nn}
+    return {"syrk": syrk, "matmul_nt": matmul_nt, "matmul_nn": matmul_nn,
+            "ggn_sweep": ggn_sweep}
 
 
 def _write_inputs(workdir: Path, cfg: dict) -> None:
@@ -265,7 +285,7 @@ def phase_main_path(workdir: Path) -> tuple[dict, list]:
     from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
     cfg = load_experiment_config(CONFIG)
     _write_inputs(workdir, cfg)
-    wrappers = _wrappers()
+    wrappers = {name: _wrappers()[name] for name in SERVING_KERNELS}
     for fn in wrappers.values():
         fn.launches = 0
     records = evaluate.main(_main_path_argv(workdir))
@@ -387,9 +407,10 @@ def phase_agreement(workdir: Path) -> None:
                              f"float64 contractions (plain path: {rel_p:.3e})")
 
 
-BACKWARD = {   # the training path's backward passes -> the JAX custom VJP each replaces
+BACKWARD = {   # the training paths' backward passes -> the JAX custom VJP each replaces
     "syrk_backward": "laplace_inducing_points_tpu/ops/pallas/syrk.py:122",
     "matmul_nt_backward": "laplace_inducing_points_tpu/ops/pallas/matmul.py:105",
+    "matmul_nn_backward": "laplace_inducing_points_tpu/ops/pallas/matmul.py:190",
 }
 
 
@@ -484,14 +505,15 @@ def phase_backward() -> dict:
         ct_xz, timed=True, library=lambda: torch.mm(ct_xz.T, Rx))
     rows["matmul_nt_backward"].update(bound(2 * dz * dx * D,
                                             4 * (dx * D + dx * dz + dz * D)))
-    # both gradients of each product once, and B3's own backward at the shape
-    # of B1's backward product (no ported path differentiates B3 yet)
+    # both gradients of each product once, and B3's own backward (the
+    # stochastic objective's Woodbury correction) at the shape of B1's
+    # backward product; its library time is the two torch.mm of its products
     _check_backward("matmul_nt_backward", matmul_nt, matmul_nt_plain, (Rx, Rz),
                     (True, True), ct_xz)
     A_nn, ct_nn = randn(dz, dz), randn(dz, D)
     rows["matmul_nn_backward"] = _check_backward(
         "matmul_nn_backward", matmul_nn, matmul_nn_plain, (A_nn, Rz), (True, True),
-        ct_nn, timed=True)
+        ct_nn, timed=True, library=lambda: (torch.mm(ct_nn, Rz.T), torch.mm(A_nn.T, ct_nn)))
     rows["matmul_nn_backward"].update(bound(4 * dz * dz * D,
                                             4 * (dz * dz + 2 * dz * D + dz * dz + dz * D)))
     for name, fn, plain, shapes, ct_shape in (
@@ -503,6 +525,11 @@ def phase_backward() -> dict:
         inputs = [randn(*sh) for sh in shapes]
         _check_backward(name, fn, plain, inputs, [True] * len(inputs), randn(*ct_shape))
     return rows
+
+
+# kernels the gram path (phase 7) does not run: B3's own backward and B4 belong
+# to the stochastic objective (phase 10)
+GRAM_PATH_UNUSED = ("matmul_nn_backward", "ggn_sweep", "ggn_sweep_backward")
 
 
 def _train_config(workdir: Path) -> str:
@@ -570,7 +597,7 @@ def phase_training(workdir: Path, backward_rows: dict) -> dict:
     launches = _read_counts()
     print(f"launches during the training path: {json.dumps(launches)}")
     for name, n in launches.items():
-        if n <= 0 and name != "matmul_nn_backward":
+        if n <= 0 and name not in GRAM_PATH_UNUSED:
             raise AssertionError(f"{name} was not launched by the training path")
     map_stats, ind = result["map"], result["inducing"]
     losses = [r["loss"] for r in ind["rows"]]
@@ -610,7 +637,8 @@ def phase_training(workdir: Path, backward_rows: dict) -> dict:
           f"(of which the backward kernels {bwd_kernel_ms / 1e3:.4f} s, phase 6), "
           f"row pullback {split['pullback']:.4f} s")
     return {"launches": launches, "state": state, "Z": Z, "X": X, "alpha": opt["alpha"],
-            "beta": beta, "gamma": gamma}
+            "beta": beta, "gamma": gamma, "map_dir": dirs["train_map"],
+            "data_dir": dirs["data"]}
 
 
 def phase_gradient_agreement(train: dict) -> None:
@@ -662,6 +690,303 @@ def phase_gradient_agreement(train: dict) -> None:
                                  f"{err['plain']:.3e}")
 
 
+@contextlib.contextmanager
+def tf32_matmuls():
+    """cuBLAS f32 matmuls in TF32 inside the scope only (the library yardstick
+    of the sweep kernel); the f32 policy is restored on exit."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _library_sweep(V, R, scale):
+    """Two cuBLAS TF32 products, ``scale·(V Rᵀ) R``: timed, never used by the port."""
+    with tf32_matmuls():
+        return scale * torch.mm(torch.mm(V, R.T), R)
+
+
+def _sweep_work(P: int, d: int, D: int) -> dict:
+    """The sweep's least time: 4·P·d·D operations over the TF32 peak, or its
+    bytes (V and R read once, Y written once) over the memory rate."""
+    flops, nbytes = 4 * P * d * D, 4 * (2 * P * D + d * D)
+    t_ops, t_bytes = flops / TF32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "gflop": flops / 1e9, "two_pass_bytes_ms": 4 * (2 * P * D + 2 * d * D) / HBM_BYTES * 1e3}
+
+
+def phase_sweep() -> dict:
+    """B4 against its plain FP32 version, two cuBLAS TF32 products and
+    float64, forward and gradient in V. Gate: the kernel is no further from
+    float64 than F64_RATIO times the cuBLAS TF32 products."""
+    print("== phase 9: the GGN probe sweep (TF32) against FP32, cuBLAS TF32 and float64",
+          flush=True)
+    from laplace_inducing_points_tpu_torch.ops.cuda.sweep import ggn_sweep, ggn_sweep_plain
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    rows = {}
+    for P, d, D, scale, timed in ((240, 1280, 61706, 468.75, True),
+                                  (16, 1280, 61706, 468.75, False),
+                                  (17, 70, 333, 0.5, False)):
+        V, R, ct = randn(P, D), randn(d, D), randn(P, D)
+        fwd = {"kernel": ggn_sweep(V, R, scale), "plain": ggn_sweep_plain(V, R, scale),
+               "library": _library_sweep(V, R, scale)}
+        ref = ggn_sweep_plain(V.double(), R.double(), scale)
+        v = V.clone().requires_grad_()
+        (dv_kernel,) = torch.autograd.grad(ggn_sweep(v, R, scale), v, ct)
+        v64 = V.double().requires_grad_()
+        (dv_64,) = torch.autograd.grad(ggn_sweep_plain(v64, R.double(), scale), v64,
+                                       ct.double())
+        bwd = {"kernel": dv_kernel, "plain": ggn_sweep_plain(ct, R, scale),
+               "library": _library_sweep(ct, R, scale)}
+        torch.cuda.synchronize()
+        for what, outs, exact in (("forward", fwd, ref), ("dV", bwd, dv_64)):
+            err = {key: _rel(out, exact) for key, out in outs.items()}
+            to_plain = _rel(outs["kernel"], outs["plain"])
+            print(f"  ggn_sweep {what:7s} V {(P, D)} R {(d, D)} scale {scale}: rel vs f64 "
+                  f"kernel {err['kernel']:.3e}, cuBLAS TF32 {err['library']:.3e}, plain FP32 "
+                  f"{err['plain']:.3e}; kernel vs plain FP32 {to_plain:.3e}", flush=True)
+            if not err["kernel"] <= F64_RATIO * err["library"]:
+                raise AssertionError(f"ggn_sweep {what} {(P, d, D)}: f64 error "
+                                     f"{err['kernel']:.3e} > {F64_RATIO} x cuBLAS TF32's "
+                                     f"{err['library']:.3e}")
+        if not timed:
+            continue
+        work = _sweep_work(P, d, D)
+        rows["ggn_sweep"] = {
+            "max_abs_err": float((fwd["kernel"] - fwd["plain"]).abs().max()),
+            "ms": cuda_ms(lambda: ggn_sweep(V, R, scale)),
+            "plain_ms": cuda_ms(lambda: ggn_sweep_plain(V, R, scale)),
+            "library_ms": cuda_ms(lambda: _library_sweep(V, R, scale)), **work}
+        out = ggn_sweep(v, R, scale)
+        rows["ggn_sweep_backward"] = {
+            "max_abs_err": float((bwd["kernel"] - bwd["plain"]).abs().max()),
+            "ms": cuda_ms(lambda: torch.autograd.grad(out, v, ct, retain_graph=True)),
+            "plain_ms": cuda_ms(lambda: ggn_sweep_plain(ct, R, scale)),
+            "library_ms": cuda_ms(lambda: _library_sweep(ct, R, scale)), **work}
+        for name, row in rows.items():
+            print(f"  {name:18s} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                  f"library_ms (cuBLAS TF32)={row['library_ms']:.4f} bound_ms="
+                  f"{row['bound_ms']:.4f} ({row['bound_by']}; {row['gflop']:.1f} GFLOP; "
+                  f"two-pass bytes {row['two_pass_bytes_ms']:.4f} ms)", flush=True)
+    return rows
+
+
+def _stochastic_config(workdir: Path) -> str:
+    """lenet5_mnist.yml with only ip.epochs cut, 250 -> 3."""
+    text = Path(CONFIG).read_text()
+    if text.count("    epochs: 250\n") != 1:
+        raise AssertionError(f"{CONFIG} has no single line 'epochs: 250'")
+    path = workdir / "lenet5_mnist_z_steps_cut.yml"
+    path.write_text(text.replace("    epochs: 250\n", "    epochs: 3\n"))
+    return str(path)
+
+
+def _warm_stochastic_step(state, Z, X, alpha, beta, gamma, probes, slq_samples,
+                          num_matvecs, reps: int = 2) -> dict:
+    """Host seconds of the parts of a warm stochastic Z step (device
+    synchronised), median of ``reps`` after one warm-up, and its peak memory."""
+    from laplace_inducing_points_tpu_torch.core import operators as ops
+    from laplace_inducing_points_tpu_torch.ops import slq as slq_mod
+    from laplace_inducing_points_tpu_torch.ops import stochtrace as st
+    from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk
+    from laplace_inducing_points_tpu_torch.training import inducing as ind
+    names = ("rows", "gram_cholesky", "hutchpp", "slq", "backward", "pullback")
+    parts = {key: [] for key in names}
+    s1, s2 = ind.probe_split(probes.shape[0])
+    for _ in range(reps + 1):
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            (Rz, Rx), rows_s = _host_s(lambda: (ops.dense_wt(state, Z), ops.dense_wt(state, X)))
+        Rz.requires_grad_()
+        L, chol_s = _host_s(lambda: ind._c_cholesky(syrk(Rz), alpha, beta))
+        trace, hpp_s = _host_s(lambda: st.hutchpp(
+            ind.stochastic_composite(Rz, Rx, L, alpha, gamma), probes, s1=s1, s2=s2))
+        stacked, stacked_t = ind.stacked_operator(Rz, alpha, beta)
+        logdet, slq_s = _host_s(lambda: slq_mod.slq_logdet_product(
+            stacked, probes[:slq_samples], num_matvecs, t_matvec=stacked_t))
+        (ct,), bwd_s = _host_s(lambda: torch.autograd.grad(trace + logdet, Rz))
+        _, pull_s = _host_s(lambda: ops.dense_wt_pullback(state, Z, ct))
+        for key, val in zip(names, (rows_s, chol_s, hpp_s, slq_s, bwd_s, pull_s)):
+            parts[key].append(val)
+        del Rz, Rx, L, trace, logdet, ct
+    split = {key: statistics.median(vals[1:]) for key, vals in parts.items()}
+    split["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return split
+
+
+def phase_stochastic(workdir: Path, train: dict) -> dict:
+    """The port's trainer with the stochastic objective on LeNet5 at full
+    width, from phase 7's MAP weights, then evaluation of its Z; the launch
+    counts of both are read together."""
+    print("== phase 10: stochastic path (cli.train_scale.main train_inducing --objective "
+          "stochastic, then cli.evaluate.main)", flush=True)
+    from laplace_inducing_points_tpu_torch.cli import evaluate, train_scale
+    from laplace_inducing_points_tpu_torch.ops import stochtrace as st
+    from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
+    config = _stochastic_config(workdir)
+    ip = load_experiment_config(config)["optimization"]["ip"]
+    print(f"config {CONFIG} with ip.epochs 250 -> {ip['epochs']}; as shipped: M={ip['m']}, "
+          f"ip.batch_size={ip['batch_size']}, st_samples={ip['st_samples']}, slq_samples="
+          f"{ip['slq_samples']}, slq_num_matvecs={ip['slq_num_matvecs']}, alpha_ip="
+          f"{train['alpha']}")
+    common = ["--dataset", "mnist", "--config", config, "--device", "cuda",
+              "--ckpt_map", train["map_dir"], "--ckpt_induc", str(workdir / "stoch_ind"),
+              "--data_dir", train["data_dir"]]
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    result = train_scale.main(["train_inducing", "--objective", "stochastic", "--alpha_ip",
+                               str(train["alpha"]), "--train_log",
+                               str(workdir / "stoch_log.jsonl"), *common])
+    run_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    records = evaluate.main(["--scalable", "--predictive", "weight", "--iters", "1",
+                             "--max_batches", "2", *common])
+    launches = _read_counts()
+    print(f"launches during the stochastic path: {json.dumps(launches)}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched by the stochastic path")
+    ind = result["inducing"]
+    losses = [r["loss"] for r in ind["rows"]]
+    if ind["objective"] != "stochastic":
+        raise AssertionError(f"the run trained {ind['objective']!r}")
+    if len(losses) != ip["epochs"] or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"Z-step losses: {losses}")
+    if not (result["Z_moved"] > 0.0):
+        raise AssertionError("Z did not move")
+    for key in ("nll", "acc", "brier", "ece"):
+        if not math.isfinite(records[0][key]):
+            raise AssertionError(f"evaluation of the stochastic Z: {key}={records[0][key]}")
+    print(f"Z: {ind['steps']} steps, first {ind['first_step_seconds']:.3f} s, warm median "
+          f"{ind['seconds_per_step']:.4f} s per step; losses "
+          f"{', '.join(f'{v:.8g}' for v in losses)}; max |Z - Z0| = {result['Z_moved']:.4g}; "
+          f"peak memory of the run {run_peak_gib:.2f} GiB")
+    print(f"evaluation of the stochastic Z: nll={records[0]['nll']:.5f} "
+          f"acc={records[0]['acc']:.5f} brier={records[0]['brier']:.5f} "
+          f"ece={records[0]['ece']:.5f}")
+    state, X, Z = train["state"], train["X"], train["Z"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    probes = st.rademacher_probes(gen, ip["st_samples"], state.spec.num_params)
+    split = _warm_stochastic_step(state, Z, X, train["alpha"], train["beta"], train["gamma"],
+                                  probes, ip["slq_samples"], ip["slq_num_matvecs"])
+    print(f"warm stochastic Z step split (host clock, synchronised, median of 2): rows "
+          f"{split['rows']:.4f} s, Gram + Cholesky {split['gram_cholesky']:.4f} s, Hutch++ "
+          f"sweeps {split['hutchpp']:.4f} s, SLQ loop {split['slq']:.4f} s, backward "
+          f"{split['backward']:.4f} s, row pullback {split['pullback']:.4f} s; peak memory "
+          f"{split['peak_gib']:.2f} GiB (torch.cuda.max_memory_allocated)")
+    _krylov_products(state, Z)
+    return {"launches": launches, "ip": ip}
+
+
+def _krylov_products(state, Z) -> None:
+    """The SLQ loop's two products per Golub–Kahan step at their shapes, CUDA
+    events: ``Rz v`` on the NT kernel (one row of output tiles) and ``Rzᵀ u``
+    on the NN kernel, each beside one cuBLAS call; both are bound by reading
+    Rz once."""
+    from laplace_inducing_points_tpu_torch.core import operators as ops
+    from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nn, matmul_nt
+    with torch.no_grad():
+        Rz = ops.dense_wt(state, Z)
+        d_z, D = Rz.shape
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        v = torch.randn(1, D, generator=gen, device="cuda")
+        u = torch.randn(1, d_z, generator=gen, device="cuda")
+        bound_ms = 4 * (d_z * D + D + d_z) / HBM_BYTES * 1e3
+        for name, kernel, library in (
+                (f"matmul_nt (1, {D}) x ({d_z}, {D})^T", lambda: matmul_nt(v, Rz),
+                 lambda: torch.mm(v, Rz.T)),
+                (f"matmul_nn (1, {d_z}) x ({d_z}, {D})", lambda: matmul_nn(u, Rz),
+                 lambda: torch.mm(u, Rz))):
+            print(f"  Krylov step product {name}: kernel ms={cuda_ms(kernel):.4f} "
+                  f"library_ms={cuda_ms(library):.4f} bound_ms={bound_ms:.4f} (bytes)",
+                  flush=True)
+
+
+def phase_estimator_agreement(train: dict, ip: dict) -> None:
+    """One stochastic Z step's KL and dL/dZ on the same probes: (a) the
+    kernel path, (b) the kernels with the FP32 sweep, (c) the plain FP32
+    path, each against float64 of the same row algebra, each ∂L/∂Rz pulled
+    back through the same f32 row build; beside the estimator's spread over
+    four probe draws of the kernel path. Gates: (b) no further from float64
+    than F64_RATIO times (c); (a) within 0.1 times the spread."""
+    print("== phase 11: estimator agreement of one stochastic Z step", flush=True)
+    import functools
+
+    from laplace_inducing_points_tpu_torch.core import operators as ops
+    from laplace_inducing_points_tpu_torch.ops import stochtrace as st
+    from laplace_inducing_points_tpu_torch.ops.cuda.matmul import (matmul_nn,
+                                                                   matmul_nn_plain,
+                                                                   matmul_nt,
+                                                                   matmul_nt_plain)
+    from laplace_inducing_points_tpu_torch.ops.cuda.sweep import ggn_sweep, ggn_sweep_plain
+    from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk, syrk_plain
+    from laplace_inducing_points_tpu_torch.training import inducing as ind
+    state, Z, X = train["state"], train["Z"], train["X"]
+    consts = (train["alpha"], train["beta"], train["gamma"])
+    knobs = (ip["slq_samples"], ip["slq_num_matvecs"])
+    products = {
+        "kernel": ind.KERNEL_PRODUCTS,
+        "kernel_fp32_sweep": ind.Products(syrk, matmul_nt, matmul_nn,
+                                          functools.partial(ggn_sweep, precision="highest")),
+        "plain": ind.Products(syrk_plain, matmul_nt_plain, matmul_nn_plain, ggn_sweep_plain),
+    }
+    with torch.no_grad():
+        Rz, Rx = ops.dense_wt(state, Z), ops.dense_wt(state, X)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def draw():
+        return st.rademacher_probes(gen, ip["st_samples"], state.spec.num_params)
+
+    def value_and_dz(probes, prods, dtype=torch.float32):
+        v, ct = ind.kl_stochastic_rows_value_and_grad(
+            Rz.to(dtype), Rx.to(dtype), *consts, probes.to(dtype), *knobs, products=prods)
+        return float(v), ops.dense_wt_pullback(state, Z, ct.float())
+
+    probes = draw()
+    out = {key: value_and_dz(probes, prods) for key, prods in products.items()}
+    out["float64"] = value_and_dz(probes, products["plain"], torch.float64)
+    draws = [value_and_dz(draw(), products["kernel"]) for _ in range(4)]
+    torch.cuda.synchronize()
+    v64, g64 = out["float64"]
+    val_err = {key: abs(v - v64) / abs(v64) for key, (v, _) in out.items()}
+    grad_err = {key: _rel(g, g64) for key, (_, g) in out.items()}
+    values = torch.tensor([v for v, _ in draws], dtype=torch.float64)
+    grads = torch.stack([g.double() for _, g in draws])
+    mean_g = grads.mean(0)
+    value_spread = float(values.std())
+    grad_spread = float(torch.sqrt(((grads - mean_g) ** 2).sum() / len(draws))
+                        / torch.linalg.norm(mean_g))
+    for key in ("kernel", "kernel_fp32_sweep", "plain"):
+        print(f"  {key:17s} KL {out[key][0]:.10g} (rel vs f64 {val_err[key]:.3e}, abs "
+              f"{abs(out[key][0] - v64):.4g}); dL/dZ rel-L2 vs f64 {grad_err[key]:.3e}")
+    print(f"  float64           KL {v64:.12g}")
+    print(f"  spread over 4 probe draws (kernel path): KL std {value_spread:.4g} "
+          f"(relative {value_spread / abs(v64):.3e}; values "
+          f"{', '.join(f'{v:.10g}' for v in values.tolist())}); dL/dZ relative spread "
+          f"{grad_spread:.3e}")
+    print(f"  TF32 shift / spread: KL {abs(out['kernel'][0] - v64) / value_spread:.3e}, "
+          f"dL/dZ {grad_err['kernel'] / grad_spread:.3e}")
+    if not all(math.isfinite(v) for v, _ in out.values()):
+        raise AssertionError(f"KL values not finite: {out}")
+    for what, err in (("KL value", val_err), ("dL/dZ", grad_err)):
+        if not err["kernel_fp32_sweep"] <= F64_RATIO * err["plain"]:
+            raise AssertionError(f"{what}: FP32 kernel path {err['kernel_fp32_sweep']:.3e} "
+                                 f"from float64, more than {F64_RATIO} x the plain path's "
+                                 f"{err['plain']:.3e}")
+    if not abs(out["kernel"][0] - v64) < 0.1 * value_spread:
+        raise AssertionError(f"KL value: the TF32 path is {abs(out['kernel'][0] - v64):.4g} "
+                             f"from float64, not below 0.1 x the spread {value_spread:.4g}")
+    if not grad_err["kernel"] < 0.1 * grad_spread:
+        raise AssertionError(f"dL/dZ: the TF32 path is {grad_err['kernel']:.3e} from "
+                             f"float64, not below 0.1 x the spread {grad_spread:.3e}")
+
+
 def main() -> int:
     smi = phase_environment()
     phase_build()
@@ -672,17 +997,29 @@ def main() -> int:
         backward_rows = phase_backward()
         train = phase_training(Path(tmp), backward_rows)
         phase_gradient_agreement(train)
+        sweep_rows = phase_sweep()
+        stochastic = phase_stochastic(Path(tmp), train)
+        phase_estimator_agreement(train, stochastic["ip"])
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
               "replaces": KERNELS[name][1], "launches": launches[name],
               **{k: kernel_rows[name][k] for k in keys}}
              for name in KERNELS]
-    # B3's own backward has no caller on a ported path (phase 6 checks and times it)
+    # backward launches: B1's and B2's on the gram path (phase 7), B3's own on
+    # the stochastic path (phase 10)
     table += [{"name": name, "route": "cuda",
                "source": "laplace_inducing_points_tpu_torch/csrc/matmul.cu",
-               "replaces": replaces, "launches": train["launches"][name],
+               "replaces": replaces,
+               "launches": (stochastic if name == "matmul_nn_backward" else train)
+               ["launches"][name],
                **{k: backward_rows[name][k] for k in keys}}
               for name, replaces in BACKWARD.items()]
+    table += [{"name": name, "route": "cuda",
+               "source": "laplace_inducing_points_tpu_torch/csrc/ggn_sweep.cu",
+               "replaces": "laplace_inducing_points_tpu/ops/pallas/matmul.py:213",
+               "launches": stochastic["launches"][name],
+               **{k: sweep_rows[name][k] for k in keys}}
+              for name in ("ggn_sweep", "ggn_sweep_backward")]
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

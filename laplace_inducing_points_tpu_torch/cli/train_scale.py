@@ -1,14 +1,17 @@
 """Scale-experiment trainer: MAP weights, then inducing points Z on the exact
-Gram KL.
+Gram KL or its stochastic (Hutch++ + SLQ) estimate.
 
 Counterpart of ``laplace_inducing_points_tpu/cli/train_scale.py:83-268`` for
 the LeNet5 slice: the three modes, MAP with the cosine schedule, Z training
-with the ``gram`` objective at ``--alpha_ip``, the ``--train_log`` rows and
-summary, and the checkpoints that ``cli.evaluate`` reads (the MAP weights as
-``{ckpt_map}/map_{dataset}.pt``, Z as ``{ckpt_induc}/ind_{dataset}_{epochs}.npz``
-with the run's meta beside it). The α grid search, evidence α, ``--continue``,
-``--profile``, the other objectives and a mesh are not ported yet and raise
-(ROADMAP, Queue A).
+with the ``gram`` or ``stochastic`` objective at ``--alpha_ip`` (the
+stochastic one with the config's ``ip.st_samples``, ``ip.slq_samples``,
+``ip.slq_num_matvecs`` and probes seeded from ``ip.seed``), the
+``--train_log`` rows and summary, and the checkpoints that ``cli.evaluate``
+reads (the MAP weights as ``{ckpt_map}/map_{dataset}.pt``, Z as
+``{ckpt_induc}/ind_{dataset}_{epochs}.npz`` with the run's meta beside it).
+The α grid search, evidence α, ``--continue``, ``--profile``, the ``dense``,
+``gram_chunked`` and ``stochastic_matfree`` objectives and a mesh are not
+ported yet and raise (ROADMAP, Queue A).
 
 The MAP weights start from a seeded numpy lecun-normal init in the JAX layout
 (``core.params.lecun_normal_params`` of ``model.seed``): the Flax init stream
@@ -35,13 +38,17 @@ from laplace_inducing_points_tpu_torch.data.loader import cycling_batches
 from laplace_inducing_points_tpu_torch.data.scale import DATASET_SHAPES, get_dataloaders
 from laplace_inducing_points_tpu_torch.models.registry import get_model
 from laplace_inducing_points_tpu_torch.models.state import ModelState
-from laplace_inducing_points_tpu_torch.training.inducing import train_inducing_points
+from laplace_inducing_points_tpu_torch.training.inducing import (OBJECTIVES,
+                                                                 train_inducing_points)
 from laplace_inducing_points_tpu_torch.training.map import cosine_lr, train_map
 from laplace_inducing_points_tpu_torch.utils.checkpoint import (load_params, save_array,
                                                                 save_params,
                                                                 save_run_meta)
 from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
 from laplace_inducing_points_tpu_torch.utils.device import resolve_device, set_f32_policy
+
+
+PORTED_OBJECTIVES = (None, *OBJECTIVES)
 
 
 def build_parser():
@@ -59,7 +66,8 @@ def build_parser():
     p.add_argument("--objective", default=None,
                    choices=["dense", "gram", "gram_chunked", "stochastic",
                             "stochastic_matfree"],
-                   help="only 'gram' is ported; default: config ip.objective")
+                   help="'gram' and 'stochastic' are ported; default: config "
+                        "ip.objective")
     p.add_argument("--ckpt_map", default="checkpoint/map/")
     p.add_argument("--ckpt_induc", default="checkpoint/ind/")
     p.add_argument("--data_dir", default="data/")
@@ -80,7 +88,7 @@ def _refuse_unported(args) -> None:
         "--alpha_mode evidence": args.alpha_mode == "evidence",
         "--profile": args.profile is not None,
         "--mesh": args.mesh,
-        f"--objective {args.objective}": args.objective not in (None, "gram"),
+        f"--objective {args.objective}": args.objective not in PORTED_OBJECTIVES,
     }
     for flag, asked in unported.items():
         if asked:
@@ -189,7 +197,7 @@ def main(argv=None) -> dict:
                                       root=args.data_dir)
     alpha_ip, alpha_src = args.alpha_ip, "cli"
     objective = args.objective or ip_cfg["objective"]
-    if objective != "gram":
+    if objective not in OBJECTIVES:
         raise NotImplementedError(f"objective {objective!r} is not ported yet "
                                   "(ROADMAP, Queue A)")
 
@@ -206,7 +214,11 @@ def main(argv=None) -> dict:
     Z = train_inducing_points(state, z_init, cycling_batches(ip_loader), alpha=alpha_ip,
                               num_steps=ip_cfg["epochs"], lr=ip_cfg["lr"],
                               full_set_size=full_set_size, objective=objective,
-                              example_block=ip_cfg["example_block"], callback=callback)
+                              example_block=ip_cfg["example_block"],
+                              generator=torch.Generator(device=device).manual_seed(ip_cfg["seed"]),
+                              st_samples=ip_cfg["st_samples"],
+                              slq_samples=ip_cfg["slq_samples"],
+                              slq_num_matvecs=ip_cfg["slq_num_matvecs"], callback=callback)
     if rows:
         losses = [r["loss"] for r in rows]
         summary = {"op": "kl_training_run", "objective": objective, "M": int(m),

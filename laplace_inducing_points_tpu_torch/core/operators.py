@@ -3,9 +3,10 @@
 Counterpart of ``laplace_inducing_points_tpu/core/operators.py``: ``pdot``
 (``:44``), ``model_outputs`` (``:61``), ``Linearization``/``linearize_model``
 (``:80-164``), ``dense_wt`` (``:496-532``) with its pullback in ``Z`` (the
-reference's ``_rows_chunk_vjp``, ``training/inducing.py:591``) and
+reference's ``_rows_chunk_vjp``, ``training/inducing.py:591``),
+``ggn_matmat_materialized`` (``:625``) on the ``ggn_sweep`` kernel and
 ``ensure_symmetry`` (``:702``). The matrix-free ``WFactor``/``GGNOperator``
-family waits for the stochastic and matfree slices (ROADMAP, Queue A).
+family waits for the matfree slice (ROADMAP, Queue A).
 
 Operator glossary (D = #params, M = #points, K = #outputs, d = M·K):
 ``Wᵀ : R^D -> R^{M×K}``, ``(Wᵀ v)_i = c · L_iᵀ J_i v``, so the rows
@@ -24,6 +25,7 @@ import torch
 from torch.func import functional_call, jacrev, jvp, vjp, vmap
 
 from laplace_inducing_points_tpu_torch.core import loss_hessians as lh
+from laplace_inducing_points_tpu_torch.ops.cuda.sweep import ggn_sweep
 
 
 def pdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -144,6 +146,26 @@ def dense_wt_pullback(state, Z: torch.Tensor, ct: torch.Tensor, *,
         _, pull = vjp(rows, Z[s])
         grads.append(pull(ct[s.start * K:s.stop * K])[0])
     return grads[0] if len(grads) == 1 else torch.cat(grads)
+
+
+def ggn_matmat_materialized(state, Z: torch.Tensor, V: torch.Tensor,
+                            full_set_size: Optional[int] = None,
+                            R: Optional[torch.Tensor] = None,
+                            example_block: Optional[int] = None) -> torch.Tensor:
+    """GGN probe sweep through the materialized rows: ``c²·(V Rᵀ) R`` with
+    ``c² = N/M`` and ``R = LᵀJ``, two long products in the ``ggn_sweep``
+    kernel at estimator precision.
+
+    Building ``R`` costs ``M·K`` single-example backward passes once; each
+    probe after that is matrix-product work, so for hundreds of probes
+    (Hutch++) this beats a per-probe jvp/vjp sweep. Pass a prebuilt ``R`` to
+    amortize it across sweeps.
+    """
+    M = Z.shape[0]
+    N = full_set_size or M
+    if R is None:
+        R = dense_wt(state, Z, example_block=example_block)    # (M·K, D)
+    return ggn_sweep(V, R, N / M)
 
 
 def ensure_symmetry(A: torch.Tensor, jitter: float = 1e-8) -> torch.Tensor:

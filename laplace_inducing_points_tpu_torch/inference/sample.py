@@ -3,10 +3,10 @@
 Counterpart of ``laplace_inducing_points_tpu/inference/sample.py``:
 ``_g_weights`` (``:41``), ``inv_matsqrt_gram`` (``:64``),
 ``apply_inv_matsqrt_rows`` (``:73``), the materialized branch of
-``make_inv_matsqrt`` (``:87-115``), ``inv_matsqrt_dense`` (``:357``) and
-``sample`` (``:370``) for ``gram_eigh`` and ``dense``. The matrix-free
-branch, the Lanczos and the Matheron samplers wait for later slices (ROADMAP,
-Queue A).
+``make_inv_matsqrt`` (``:87-115``), ``make_inv_matsqrt_lanczos`` (``:314``),
+``inv_matsqrt_dense`` (``:357``) and ``sample`` (``:370``) for ``gram_eigh``,
+``lanczos`` and ``dense``. The matrix-free branch and the Matheron sampler
+wait for later slices (ROADMAP, Queue A).
 
 Draws ``δθ ~ N(0, S⁻¹)`` with ``S = αI + β W Wᵀ`` by applying ``S^{-1/2}`` to
 standard normal noise. With ``G = WᵀW = V Λ Vᵀ`` (``d×d``, d = M·K):
@@ -27,6 +27,7 @@ from typing import Callable, Optional
 import torch
 
 from laplace_inducing_points_tpu_torch.core import operators as ops
+from laplace_inducing_points_tpu_torch.ops import lanczos as lz
 from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nn, matmul_nt
 from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk
 
@@ -88,6 +89,43 @@ def make_inv_matsqrt(state, Z: torch.Tensor, alpha: float,
     return lambda eps: apply_inv_matsqrt_rows(eps, R, core, alpha)
 
 
+def make_inv_matsqrt_lanczos(state, Z: torch.Tensor, alpha: float,
+                             full_set_size: Optional[int] = None,
+                             num_matvecs: Optional[int] = None,
+                             eig_clip_min: Optional[float] = None
+                             ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Reference-parity sampler: ``S^{-1/2}ε`` as the null-space term
+    ``α^{-1/2}(I − W G⁺ Wᵀ)ε`` plus the range term ``W G⁺ (αI + βG)^{-1/2} Wᵀε``,
+    the inner inverse square root by ``funm_lanczos_sym`` over ``num_matvecs``
+    (default ``2M``) Gram matvecs; ``G⁺`` is the pseudo-inverse of the (CE,
+    generally singular) Gram. ``eig_clip_min=1.0`` is the reference's
+    monkeypatched clip. The products with the rows ``R`` go through the NT/NN
+    kernels; each probe runs its own Lanczos loop.
+    """
+    M = Z.shape[0]
+    beta = (full_set_size or M) / M
+    k = num_matvecs or 2 * M
+    R = ops.dense_wt(state, Z)                                 # (d, D)
+    gram = syrk(R)
+    lam, V = torch.linalg.eigh(ops.ensure_symmetry(gram, jitter=0.0))
+    mask = lam > 1e-7 * torch.clamp(torch.max(lam), min=1.0)
+    inv_lam = torch.where(mask, 1.0 / torch.where(mask, lam, torch.ones_like(lam)),
+                          torch.zeros_like(lam))
+    gram_pinv = (V * inv_lam) @ V.T
+
+    def inner_mv(u: torch.Tensor) -> torch.Tensor:
+        return alpha * u + beta * (gram @ u)
+
+    def apply(eps: torch.Tensor) -> torch.Tensor:
+        U = matmul_nt(eps, R)                                  # rows Wᵀε (P, d)
+        null_proj = (eps - matmul_nn(ops.pdot(U, gram_pinv.T), R)) / math.sqrt(alpha)
+        Y = torch.stack([lz.funm_lanczos_sym(lambda t: 1.0 / torch.sqrt(t), inner_mv,
+                                             u, k, clip_min=eig_clip_min) for u in U])
+        return null_proj + matmul_nn(ops.pdot(Y, gram_pinv.T), R)
+
+    return apply
+
+
 def inv_matsqrt_dense(state, Z: torch.Tensor, alpha: float,
                       full_set_size: Optional[int] = None) -> torch.Tensor:
     """Dense ``D×D`` twin for tests (small models only)."""
@@ -110,10 +148,12 @@ def sample(state, Z: torch.Tensor, alpha: float, generator: torch.Generator, *,
                       device=state.device, dtype=torch.float32)
     if method == "gram_eigh":
         apply = make_inv_matsqrt(state, Z, alpha, full_set_size, **kwargs)
+    elif method == "lanczos":
+        apply = make_inv_matsqrt_lanczos(state, Z, alpha, full_set_size, **kwargs)
     elif method == "dense":
         mat = inv_matsqrt_dense(state, Z, alpha, full_set_size)
         apply = lambda E: ops.pdot(E, mat.T)
-    elif method in ("lanczos", "matheron"):
+    elif method == "matheron":
         raise NotImplementedError(f"sampling method {method!r} is not ported yet "
                                   "(ROADMAP, Queue A)")
     else:

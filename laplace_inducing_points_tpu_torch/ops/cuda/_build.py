@@ -85,7 +85,10 @@ def load_library() -> ctypes.CDLL:
     lib.lip_matmul_nt_f32.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
     lib.lip_matmul_nn_f32.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
     lib.lip_syrk_f32.argtypes = [ptr, ptr, i64, i64, ptr]
-    for fn in (lib.lip_matmul_nt_f32, lib.lip_matmul_nn_f32, lib.lip_syrk_f32):
+    lib.lip_ggn_sweep_tf32.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64,
+                                       ctypes.c_float, ptr]
+    for fn in (lib.lip_matmul_nt_f32, lib.lip_matmul_nn_f32, lib.lip_syrk_f32,
+               lib.lip_ggn_sweep_tf32):
         fn.restype = ctypes.c_int
     return lib
 

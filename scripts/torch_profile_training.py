@@ -3,10 +3,11 @@
 
 Run from the root of the repository:  python3 scripts/torch_profile_training.py
 
-Two windows, each after two warm-up steps: 10 MAP steps (batch 256, Adam,
-cosine schedule off) and 5 Z steps on the gram KL (M=100, batch 128,
-full_set_size 60000, alpha 0.005, as ``configs/scale/lenet5_mnist.yml``),
-from a seeded LeNet5 (numpy lecun-normal in the JAX layout) on the synthetic
+Three windows, each after two warm-up steps: 10 MAP steps (batch 256, Adam,
+cosine schedule off), 5 Z steps on the gram KL and 2 Z steps on the
+stochastic KL (M=100, batch 128, full_set_size 60000, alpha 0.005; 256
+probes, 1 SLQ probe, 200 Krylov steps, fresh probes each step; as
+``configs/scale/lenet5_mnist.yml``), from a seeded LeNet5 (numpy lecun-normal in the JAX layout) on the synthetic
 MNIST-shaped surrogate. Each window runs once without and once under
 ``torch.profiler`` and prints: the card (``nvidia-smi`` name and power limit),
 wall seconds per step with and without the profiler, device-busy seconds per
@@ -115,6 +116,12 @@ def main() -> int:
     window(f"Z step (gram KL, M={M}, batch 128)",
            lambda: optimize_step(Z, next(z_batches), state, ALPHA, z_opt,
                                  full_set_size=FULL_SET), 5)
+    probes = torch.Generator(device="cuda").manual_seed(280300)
+    window(f"Z step (stochastic KL, M={M}, batch 128, 256 probes, 200 Krylov steps)",
+           lambda: optimize_step(Z, next(z_batches), state, ALPHA, z_opt,
+                                 full_set_size=FULL_SET, objective="stochastic",
+                                 probes=probes, st_samples=256, slq_samples=1,
+                                 slq_num_matvecs=200), 2)
     return 0
 
 

@@ -26,6 +26,8 @@ from laplace_inducing_points_tpu_torch.ops.cuda.matmul import (matmul_nn,
                                                                matmul_nn_plain,
                                                                matmul_nt,
                                                                matmul_nt_plain)
+from laplace_inducing_points_tpu_torch.ops.cuda.sweep import (ggn_sweep, ggn_sweep_plain,
+                                                              sweep_splits)
 from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk, syrk_plain
 
 WRAPPERS = {"syrk": syrk, "matmul_nt": matmul_nt, "matmul_nn": matmul_nn}
@@ -214,7 +216,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_library_name_tracks_the_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
-    assert {p.name for p in _build.sources()} >= {"syrk.cu", "matmul.cu", "gemm_f32.cuh"}
+    assert {p.name for p in _build.sources()} >= {"syrk.cu", "matmul.cu", "gemm_f32.cuh",
+                                                  "ggn_sweep.cu"}
 
 
 @pytest.mark.cuda
@@ -256,3 +259,93 @@ def test_backward_matches_plain_on_cuda(name, shapes):
     assert WRAPPERS[name].backward_launches == before + (1 if name == "syrk" else 2)
     for g, r in zip(got, torch.autograd.grad(plain(*args), args, ct)):
         torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-4)
+
+
+# --- B4, the GGN probe sweep ``scale·(V Rᵀ) R`` ------------------------------------
+# Against JAX's ggn_sweep through its Pallas kernels (interpret mode, bit-exact
+# f32 on the CPU) and through XLA; the gradients of the autograd Function
+# against autograd of the plain version. rtol 1e-5 / atol 1e-4 as above: the
+# products contract at most 83 terms here.
+
+SWEEP_SHAPES = [(5, 7, 83, 1.0), (16, 8, 64, 3.5), (3, 11, 40, 0.25)]   # P, d, D, scale
+
+
+@pytest.mark.parametrize("force_pallas", [True, False])
+@pytest.mark.parametrize("P,d,D,scale", SWEEP_SHAPES)
+def test_ggn_sweep_matches_jax(interpret_pallas, P, d, D, scale, force_pallas):
+    V, R = _randn(P, D, seed=13), _randn(d, D, seed=14)
+    ref = jmm.ggn_sweep(jnp.asarray(V), jnp.asarray(R), scale, force_pallas=force_pallas)
+    for got in (ggn_sweep(torch.from_numpy(V), torch.from_numpy(R), scale),
+                ggn_sweep(torch.from_numpy(V), torch.from_numpy(R), scale, precision="highest"),
+                ggn_sweep_plain(torch.from_numpy(V), torch.from_numpy(R), scale)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("precision", [None, "highest"])
+@pytest.mark.parametrize("P,d,D,scale", SWEEP_SHAPES)
+def test_ggn_sweep_gradients_match_plain_autograd(P, d, D, scale, precision):
+    """dV = scale·(Ĉ Rᵀ) R and dR = scale·(Tᵀ Ĉ + (Ĉ Rᵀ)ᵀ V), both asked for."""
+    V, R, ct = (torch.from_numpy(_randn(P, D, seed=15)), torch.from_numpy(_randn(d, D, seed=16)),
+                torch.from_numpy(_randn(P, D, seed=17)))
+    v, r = V.clone().requires_grad_(), R.clone().requires_grad_()
+    got = torch.autograd.grad(ggn_sweep(v, r, scale, precision=precision), (v, r), ct)
+    v0, r0 = V.clone().requires_grad_(), R.clone().requires_grad_()
+    ref = torch.autograd.grad(ggn_sweep_plain(v0, r0, scale), (v0, r0), ct)
+    for g, e in zip(got, ref):
+        torch.testing.assert_close(g, e, rtol=1e-5, atol=1e-4)
+
+
+def test_ggn_sweep_gradient_in_v_alone_and_no_counts_on_cpu():
+    """On the objective's path only the probes need a gradient: dR is not
+    computed, and CPU calls count no launches."""
+    before = (ggn_sweep.launches, ggn_sweep.backward_launches)
+    V = torch.randn(4, 30, requires_grad=True)
+    R = torch.randn(6, 30)
+    (g,) = torch.autograd.grad(ggn_sweep(V, R, 2.0).square().sum(), V)
+    torch.testing.assert_close(g, 2.0 * ggn_sweep_plain(2.0 * ggn_sweep_plain(V.detach(), R, 2.0),
+                                                        R, 1.0), rtol=1e-5, atol=1e-4)
+    assert (ggn_sweep.launches, ggn_sweep.backward_launches) == before
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        (gg,) = torch.autograd.grad(ggn_sweep(V, R).square().sum(), V, create_graph=True)
+        gg.sum().backward()
+
+
+@pytest.mark.parametrize("bad", sorted(BAD_INPUTS))
+def test_ggn_sweep_refuses(bad):
+    make, exc, match = BAD_INPUTS[bad]
+    with pytest.raises(exc, match=match):
+        ggn_sweep(make(), torch.randn(3, 6))
+    with pytest.raises(ValueError, match="contraction"):
+        ggn_sweep(torch.randn(4, 6), torch.randn(3, 7))
+    with pytest.raises(ValueError, match="precision"):
+        ggn_sweep(torch.randn(4, 6), torch.randn(3, 6), precision="tf32")
+
+
+@pytest.mark.parametrize("P,d,D,sms,splits", [
+    (240, 1280, 61706, 132, 7),       # the Hutch++ range-finder sweep: 80 tiles
+    (16, 1280, 61706, 132, 27),       # the residual sweep: 20 tiles
+    (240, 1280, 3000, 132, 3),        # short D: no block below 1024 of it
+    (2048, 1280, 61706, 132, 1),      # 640 tiles: four per SM without a split
+])
+def test_sweep_splits(P, d, D, sms, splits):
+    assert sweep_splits(P, d, D, sms) == splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,d,D", [(240, 130, 3001), (16, 70, 333), (5, 7, 83)])
+def test_ggn_sweep_matches_plain_on_cuda(P, d, D):
+    """TF32 against FP32: relative Frobenius 2e-3, the TF32 rounding (2⁻¹¹
+    per operand) over two products."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (run python3 chip_smoke.py there)")
+    V = torch.randn(P, D, device="cuda", requires_grad=True)
+    R = torch.randn(d, D, device="cuda")
+    before = (ggn_sweep.launches, ggn_sweep.backward_launches)
+    got = ggn_sweep(V, R, 0.5)
+    ct = torch.randn_like(got)
+    (g,) = torch.autograd.grad(got, V, ct)
+    torch.cuda.synchronize()
+    assert (ggn_sweep.launches, ggn_sweep.backward_launches) == (before[0] + 1, before[1] + 1)
+    for x, ref in ((got, ggn_sweep_plain(V.detach(), R, 0.5)),
+                   (g, ggn_sweep_plain(ct, R, 0.5))):
+        assert float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref)) <= 2e-3
