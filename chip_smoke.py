@@ -10,26 +10,29 @@ exits non-zero without printing a result:
    ``nvidia-smi`` name and power limit, sets the f32 policy (TF32 off);
 2. build: compiles the CUDA kernels from ``laplace_inducing_points_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version and against a
-   float64 product, at the serving path's shapes and one small ragged shape,
-   with CUDA-event times;
+   float64 product, at the serving path's shapes and one small ragged shape;
+   each path of B2 and B3 (row, rank, tiled) at the shape it serves on the
+   main paths and at a ragged odd-D shape (rows off a 16-byte boundary), with
+   the path each call took; CUDA-event times against both bounds;
 4. main path: writes a seeded LeNet5 MAP file and an inducing set, runs
    ``laplace_inducing_points_tpu_torch.cli.evaluate.main`` for
    ``configs/scale/lenet5_mnist.yml`` (M=100, S=200, batch 256) and checks
-   that every kernel was launched and the metrics are finite;
+   that every kernel and every path it uses was launched and the metrics are
+   finite;
 5. agreement: one batch's logit samples and the Gram through the kernels
    against the same computation through the plain versions and through a
    float64 evaluation of the sample contractions; warm timings of the
    factor build and of one batch, broken down;
 6. backward kernels: each kernel's ``torch.autograd.Function`` gradients
    against plain autograd and a float64 evaluation, at the training shapes
-   (Gzz = syrk(Rz), Gxz = Rx Rzᵀ) and a small ragged shape, with CUDA-event
-   times of the backward passes;
+   (Gzz = syrk(Rz), Gxz = Rx Rzᵀ), at the SLQ loop's one-row products and a
+   small ragged shape, with CUDA-event times of the backward passes;
 7. training path: ``laplace_inducing_points_tpu_torch.cli.train_scale.main``
    in ``full_pipeline`` mode on LeNet5 at full width (M=100, batch 128,
    D=61,706; only the step counts cut), then ``cli.evaluate.main`` on its MAP
    and Z; checks finite losses, that Z moved and that every forward and
-   backward kernel was launched; MAP and Z s/step and the split of a warm
-   Z step;
+   backward kernel and every path the run uses was launched; MAP and Z
+   s/step and the split of a warm Z step;
 8. gradient agreement: one Z step's KL and dL/dZ through the kernels, through
    the plain versions and through a float64 evaluation of the Gram algebra
    (same rows);
@@ -42,8 +45,9 @@ exits non-zero without printing a result:
     stochastic`` on phase 7's MAP weights (the config as shipped: 256 probes,
     1 SLQ probe, 200 Krylov steps; only ip.epochs cut to 3), then
     ``cli.evaluate.main`` on its Z; checks finite losses and metrics, that Z
-    moved and that every forward and backward kernel was launched (B3's own
-    backward included); Z s/step, a warm step's split and its peak memory;
+    moved and that every forward and backward kernel and every path of B2
+    and B3 was launched (B3's own backward included); Z s/step, a warm
+    step's split and its peak memory;
 11. estimator agreement: one stochastic Z step's KL and dL/dZ on the same
     probes through the kernels, through the kernels with the FP32 sweep,
     through the plain versions and in float64, beside the spread of the
@@ -114,18 +118,28 @@ def phase_build() -> float:
     return seconds
 
 
-def cuda_ms(fn, reps: int = 7) -> float:
-    """Median CUDA-event time of ``fn()`` over ``reps`` runs after a warm-up."""
+def cuda_ms(fn, reps: int = 7, min_ms: float = 2.0) -> float:
+    """Median CUDA-event time of ``fn()`` over ``reps`` runs after a warm-up;
+    a run is enough back-to-back calls to last ``min_ms`` (at most 50), so
+    that a short kernel is timed without the host's launch cost."""
     fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    calls = max(1, min(50, math.ceil(min_ms / max(start.elapsed_time(end), 1e-3))))
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -198,9 +212,44 @@ def _check_kernel(name, kernel, plain, inputs, timed: bool) -> dict:
     return row
 
 
+def _offset(t: torch.Tensor, floats: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose storage starts ``floats`` floats into a
+    fresh allocation: rows off a 16-byte boundary."""
+    buf = torch.empty(t.numel() + floats, device=t.device)
+    out = buf[floats:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# Each path of B2 and B3 (matmul.cu, matmul_tiled.cu): name in the kernels JSON
+# -> (wrapper, path, the main-path product it is timed at)
+PATHS = {
+    "matmul_nt.row": ("matmul_nt", "row", "SLQ Rz v"),
+    "matmul_nt.tiled": ("matmul_nt", "tiled", "Woodbury projection, 240 range probes"),
+    "matmul_nn.row": ("matmul_nn", "row", "SLQ Rz^T u"),
+    "matmul_nn.rank": ("matmul_nn", "rank", "rank-one backward product"),
+    "matmul_nn.tiled": ("matmul_nn", "tiled", "Woodbury correction, 240 probes"),
+}
+
+
+def _check_path(name, path, kernel, plain, inputs, timed: bool) -> dict:
+    """``_check_kernel``, and the call went through ``path``."""
+    before = dict(kernel.path_launches)
+    row = _check_kernel(name, kernel, plain, inputs, timed)
+    torch.cuda.synchronize()
+    taken = {p for p, n in kernel.path_launches.items() if n > before[p]}
+    if taken != {path}:
+        shape = " x ".join(str(tuple(t.shape)) for t in inputs)
+        raise AssertionError(f"{name} {shape} took the paths {sorted(taken)}, not {path!r}")
+    return row
+
+
 def phase_kernels() -> dict:
     """Each kernel against its plain version and f64 at the serving shapes
-    (M=100, K=10 -> d=1000; D=61706; S=200) and a small ragged shape."""
+    (M=100, K=10 -> d=1000; D=61706; S=200) and a small ragged shape; each
+    path of B2 and B3 at the stochastic objective's shapes (SLQ products at one
+    row, rank-one backward products, Woodbury probes: 16 and 240) and at a
+    ragged odd-D shape with rows off a 16-byte boundary."""
     print("== phase 3: kernels against their plain versions", flush=True)
     from laplace_inducing_points_tpu_torch.ops.cuda.matmul import (matmul_nn,
                                                                    matmul_nn_plain,
@@ -230,16 +279,44 @@ def phase_kernels() -> dict:
     if not torch.equal(C, C.T):
         raise AssertionError("syrk output is not exactly symmetric")
     print("  syrk output exactly symmetric: True")
+
+    print("  paths of B2 and B3 (CUDA-event ms per call over a run of calls):", flush=True)
+    wrappers = {"matmul_nt": (matmul_nt, matmul_nt_plain),
+                "matmul_nn": (matmul_nn, matmul_nn_plain)}
+    Rz = randn(d, D)
+    path_cases = [   # (JSON name or None, wrapper, path, inputs, timed)
+        ("matmul_nt.row", "matmul_nt", "row", (randn(1, D), Rz), True),
+        (None, "matmul_nt", "tiled", (randn(16, D), Rz), True),
+        ("matmul_nt.tiled", "matmul_nt", "tiled", (randn(240, D), Rz), True),
+        ("matmul_nn.row", "matmul_nn", "row", (randn(1, d), Rz), True),
+        ("matmul_nn.rank", "matmul_nn", "rank", (randn(d, 1), randn(1, D)), True),
+        ("matmul_nn.tiled", "matmul_nn", "tiled", (randn(240, d), Rz), True),
+        (None, "matmul_nt", "row", (_offset(randn(1, 3001), 1), randn(130, 3001)), False),
+        (None, "matmul_nt", "row", (_offset(randn(3, 3002), 2), randn(130, 3002)), False),
+        (None, "matmul_nt", "tiled", (_offset(randn(16, 3001), 1), randn(130, 3001)), False),
+        (None, "matmul_nt", "tiled", (randn(240, 3001), randn(130, 3001)), False),
+        (None, "matmul_nn", "row", (_offset(randn(1, d), 1), randn(d, 3001)), False),
+        (None, "matmul_nn", "rank", (randn(70, 1), randn(1, 3001)), False),
+        (None, "matmul_nn", "tiled", (randn(16, d), randn(d, 3001)), False),
+        (None, "matmul_nn", "tiled", (_offset(randn(240, d), 2), randn(d, 3001)), False),
+    ]
+    for key, name, path, inputs, timed in path_cases:
+        kernel, plain = wrappers[name]
+        if key is not None:
+            print(f"  {key}: {PATHS[key][2]}", flush=True)
+        row = _check_path(name, path, kernel, plain, inputs, timed)
+        if key is not None:
+            results[key] = row
     return results
 
 
 CONFIG = "configs/scale/lenet5_mnist.yml"
-KERNELS = {   # name -> (source, the TPU kernel it replaces)
+KERNELS = {   # name -> (source, the TPU kernel it replaces); serving shapes: tiled paths
     "syrk": ("laplace_inducing_points_tpu_torch/csrc/syrk.cu",
              "laplace_inducing_points_tpu/ops/pallas/syrk.py:71"),
-    "matmul_nt": ("laplace_inducing_points_tpu_torch/csrc/matmul.cu",
+    "matmul_nt": ("laplace_inducing_points_tpu_torch/csrc/matmul_tiled.cu",
                   "laplace_inducing_points_tpu/ops/pallas/matmul.py:68"),
-    "matmul_nn": ("laplace_inducing_points_tpu_torch/csrc/matmul.cu",
+    "matmul_nn": ("laplace_inducing_points_tpu_torch/csrc/matmul_tiled.cu",
                   "laplace_inducing_points_tpu/ops/pallas/matmul.py:153"),
 }
 SERVING_KERNELS = ("syrk", "matmul_nt", "matmul_nn")
@@ -286,13 +363,15 @@ def phase_main_path(workdir: Path) -> tuple[dict, list]:
     cfg = load_experiment_config(CONFIG)
     _write_inputs(workdir, cfg)
     wrappers = {name: _wrappers()[name] for name in SERVING_KERNELS}
-    for fn in wrappers.values():
-        fn.launches = 0
+    _reset_counts()
     records = evaluate.main(_main_path_argv(workdir))
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in wrappers.items()}
-    print(f"launches during the main path: {json.dumps(launches)}")
-    for name, n in launches.items():
+    paths = _path_counts()
+    print(f"launches during the main path: {json.dumps(launches)}; by path: "
+          f"{json.dumps(paths)}")
+    for name, n in {**launches, "matmul_nt.tiled": paths["matmul_nt.tiled"],
+                    "matmul_nn.tiled": paths["matmul_nn.tiled"]}.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
     for rec in records:
@@ -417,6 +496,14 @@ BACKWARD = {   # the training paths' backward passes -> the JAX custom VJP each 
 def _reset_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = fn.backward_launches = 0
+        for path in getattr(fn, "path_launches", {}):
+            fn.path_launches[path] = 0
+
+
+def _path_counts() -> dict:
+    """Launches of B2's and B3's kernels by path (forward and backward)."""
+    return {f"{name}.{path}": n for name, fn in _wrappers().items()
+            for path, n in getattr(fn, "path_launches", {}).items()}
 
 
 def _read_counts() -> dict:
@@ -425,6 +512,7 @@ def _read_counts() -> dict:
     for name, fn in _wrappers().items():
         counts[name] = fn.launches
         counts[f"{name}_backward"] = fn.backward_launches
+    counts.update(_path_counts())
     return counts
 
 
@@ -516,6 +604,22 @@ def phase_backward() -> dict:
         ct_nn, timed=True, library=lambda: (torch.mm(ct_nn, Rz.T), torch.mm(A_nn.T, ct_nn)))
     rows["matmul_nn_backward"].update(bound(4 * dz * dz * D,
                                             4 * (dz * dz + 2 * dz * D + dz * dz + dz * D)))
+    # the SLQ loop's one-row products: B2's backward at one row (dA on B3's row
+    # path, dB rank-one) and B3's (dA on B2's row path, dB rank-one); library:
+    # the two torch.mm of the same products
+    v, ct_v = randn(1, D), randn(1, dz)
+    rows["matmul_nt_backward.row"] = _check_backward(
+        "matmul_nt_backward", matmul_nt, matmul_nt_plain, (v, Rz), (True, True), ct_v,
+        timed=True, library=lambda: (torch.mm(ct_v, Rz), torch.mm(ct_v.T, v)))
+    rows["matmul_nt_backward.row"].update(bound(4 * dz * D, 4 * (dz + dz * D + D + dz * D)))
+    u, ct_u = randn(1, dz), randn(1, D)
+    rows["matmul_nn_backward.row"] = _check_backward(
+        "matmul_nn_backward", matmul_nn, matmul_nn_plain, (u, Rz), (True, True), ct_u,
+        timed=True, library=lambda: (torch.mm(ct_u, Rz.T), torch.mm(u.T, ct_u)))
+    rows["matmul_nn_backward.row"].update(bound(4 * dz * D, 4 * (D + dz * D + dz + dz * D)))
+    for name in ("matmul_nt_backward.row", "matmul_nn_backward.row"):
+        print(f"  {name:22s} bound_ms={rows[name]['bound_ms']:.4f} ({rows[name]['bound_by']})",
+              flush=True)
     for name, fn, plain, shapes, ct_shape in (
             ("syrk_backward", syrk, syrk_plain, [(77, 301)], (77, 77)),
             ("matmul_nt_backward", matmul_nt, matmul_nt_plain, [(13, 333), (70, 333)],
@@ -527,9 +631,10 @@ def phase_backward() -> dict:
     return rows
 
 
-# kernels the gram path (phase 7) does not run: B3's own backward and B4 belong
-# to the stochastic objective (phase 10)
-GRAM_PATH_UNUSED = ("matmul_nn_backward", "ggn_sweep", "ggn_sweep_backward")
+# kernels and paths the gram path (phase 7) does not run: B3's own backward, B4
+# and the one-row and rank-one paths belong to the stochastic objective (phase 10)
+GRAM_PATH_UNUSED = ("matmul_nn_backward", "ggn_sweep", "ggn_sweep_backward",
+                    "matmul_nt.row", "matmul_nn.row", "matmul_nn.rank")
 
 
 def _train_config(workdir: Path) -> str:
@@ -880,32 +985,7 @@ def phase_stochastic(workdir: Path, train: dict) -> dict:
           f"sweeps {split['hutchpp']:.4f} s, SLQ loop {split['slq']:.4f} s, backward "
           f"{split['backward']:.4f} s, row pullback {split['pullback']:.4f} s; peak memory "
           f"{split['peak_gib']:.2f} GiB (torch.cuda.max_memory_allocated)")
-    _krylov_products(state, Z)
     return {"launches": launches, "ip": ip}
-
-
-def _krylov_products(state, Z) -> None:
-    """The SLQ loop's two products per Golub–Kahan step at their shapes, CUDA
-    events: ``Rz v`` on the NT kernel (one row of output tiles) and ``Rzᵀ u``
-    on the NN kernel, each beside one cuBLAS call; both are bound by reading
-    Rz once."""
-    from laplace_inducing_points_tpu_torch.core import operators as ops
-    from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nn, matmul_nt
-    with torch.no_grad():
-        Rz = ops.dense_wt(state, Z)
-        d_z, D = Rz.shape
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-        v = torch.randn(1, D, generator=gen, device="cuda")
-        u = torch.randn(1, d_z, generator=gen, device="cuda")
-        bound_ms = 4 * (d_z * D + D + d_z) / HBM_BYTES * 1e3
-        for name, kernel, library in (
-                (f"matmul_nt (1, {D}) x ({d_z}, {D})^T", lambda: matmul_nt(v, Rz),
-                 lambda: torch.mm(v, Rz.T)),
-                (f"matmul_nn (1, {d_z}) x ({d_z}, {D})", lambda: matmul_nn(u, Rz),
-                 lambda: torch.mm(u, Rz))):
-            print(f"  Krylov step product {name}: kernel ms={cuda_ms(kernel):.4f} "
-                  f"library_ms={cuda_ms(library):.4f} bound_ms={bound_ms:.4f} (bytes)",
-                  flush=True)
 
 
 def phase_estimator_agreement(train: dict, ip: dict) -> None:
@@ -1008,7 +1088,7 @@ def main() -> int:
     # backward launches: B1's and B2's on the gram path (phase 7), B3's own on
     # the stochastic path (phase 10)
     table += [{"name": name, "route": "cuda",
-               "source": "laplace_inducing_points_tpu_torch/csrc/matmul.cu",
+               "source": "laplace_inducing_points_tpu_torch/csrc/matmul_tiled.cu",
                "replaces": replaces,
                "launches": (stochastic if name == "matmul_nn_backward" else train)
                ["launches"][name],
@@ -1020,6 +1100,15 @@ def main() -> int:
                "launches": stochastic["launches"][name],
                **{k: sweep_rows[name][k] for k in keys}}
               for name in ("ggn_sweep", "ggn_sweep_backward")]
+    # one entry per path of B2 and B3, timed at the product it serves (phase 3);
+    # launches: the stochastic path's (phase 10), which runs every path
+    table += [{"name": name, "route": "cuda",
+               "source": ("laplace_inducing_points_tpu_torch/csrc/"
+                          + ("matmul_tiled.cu" if path == "tiled" else "matmul.cu")),
+               "replaces": KERNELS[kernel][1],
+               "launches": stochastic["launches"][name],
+               **{k: kernel_rows[name][k] for k in keys}}
+              for name, (kernel, path, _) in PATHS.items()]
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

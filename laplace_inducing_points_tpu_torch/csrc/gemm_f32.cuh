@@ -1,4 +1,4 @@
-// Shared tile machinery of the port's true-FP32 matrix products (syrk.cu, matmul.cu).
+// Tile machinery of the port's true-FP32 SYRK (syrk.cu).
 //
 // Every kernel here computes one BM x BN output tile per block of 256 threads. The
 // contraction axis is walked in BK-strips staged in shared memory; thread (tx, ty)
@@ -49,23 +49,6 @@ __device__ __forceinline__ void load_rows(Tile& s, const float* __restrict__ X,
   }
 }
 
-// Stage rows [k0, k0 + BK) x columns [col0, col0 + BN) of a row-major (K, N)
-// matrix as it lies: s[k][c]. A warp reads 32 consecutive columns of one row.
-__device__ __forceinline__ void load_cols(Tile& s, const float* __restrict__ X,
-                                          int64_t K, int64_t N, int64_t k0,
-                                          int64_t col0) {
-  constexpr int K_PER_PASS = THREADS / BN;  // 4
-  const int c = threadIdx.x % BN;
-  const int kr = threadIdx.x / BN;
-  const int64_t col = col0 + c;
-#pragma unroll
-  for (int i = 0; i < BK / K_PER_PASS; ++i) {
-    const int kk = kr + i * K_PER_PASS;
-    const int64_t k = k0 + kk;
-    s[kk][c] = (k < K && col < N) ? X[k * N + col] : 0.f;
-  }
-}
-
 struct Accumulator {
   float sum[TM][TN];
   float comp[TM][TN];
@@ -110,11 +93,5 @@ struct Accumulator {
       }
   }
 };
-
-// Grid limits of a launch over (column tiles on x, row tiles on y).
-inline bool grid_fits(int64_t row_tiles, int64_t col_tiles) {
-  return row_tiles > 0 && col_tiles > 0 && row_tiles <= 65535 &&
-         col_tiles <= 2147483647LL;
-}
 
 }  // namespace lip

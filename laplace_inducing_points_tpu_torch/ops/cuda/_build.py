@@ -1,8 +1,9 @@
 """Build, load and bind the port's CUDA kernels.
 
 The sources in ``laplace_inducing_points_tpu_torch/csrc`` are compiled by
-``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
-loaded with ``ctypes``. The library's name carries a hash of the sources and
+``nvcc`` for ``sm_90a``, one process per ``.cu`` file, all started together,
+and linked into one shared library with a plain C interface, loaded with
+``ctypes``. The library's name carries a hash of the sources and
 flags, so a changed source builds anew and an unchanged one is reused. The
 build happens at the first launch, never at import, and into
 ``laplace_inducing_points_tpu_torch/_build/`` (ignored by git). Without
@@ -26,7 +27,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def sources() -> list[Path]:
@@ -54,23 +55,31 @@ def _nvcc() -> str:
 
 
 def build(path: Path) -> None:
-    """Compile every ``.cu`` source into ``path``; the ptxas report (registers,
-    shared memory, spills) goes to ``path`` with the suffix ``.log``."""
+    """Compile every ``.cu`` source into ``path``, each in its own ``nvcc``
+    process, in parallel; the ptxas reports (registers, shared memory, spills)
+    go to ``path`` with the suffix ``.log``."""
     path.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True)
-        path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
+        objects, procs = [], []
+        for cu in (p for p in sources() if p.suffix == ".cu"):
+            obj = os.path.join(tmp, cu.stem + ".o")
+            objects.append(obj)
+            procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(cu)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
+        logs = [proc.communicate()[0] for proc in procs]
+        path.with_suffix(".log").write_text("".join(logs))
+        failed = [log for proc, log in zip(procs, logs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "".join(failed))
+        so = os.path.join(tmp, path.name)
+        proc = subprocess.run([nvcc, "-shared", "-o", so, *objects], capture_output=True,
+                              text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        os.replace(so, path)
 
 
 @functools.lru_cache(maxsize=1)
@@ -82,12 +91,16 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     # pointers and the stream as c_void_p: a bare int would be cut to 32 bits
-    lib.lip_matmul_nt_f32.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
-    lib.lip_matmul_nn_f32.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
+    lib.lip_nt_rows_f32.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
+    lib.lip_nn_rank_f32.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
+    lib.lip_nn_rows_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, ptr]
+    lib.lip_nt_tiled_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, ptr]
+    lib.lip_nn_tiled_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, ptr]
     lib.lip_syrk_f32.argtypes = [ptr, ptr, i64, i64, ptr]
     lib.lip_ggn_sweep_tf32.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64,
                                        ctypes.c_float, ptr]
-    for fn in (lib.lip_matmul_nt_f32, lib.lip_matmul_nn_f32, lib.lip_syrk_f32,
+    for fn in (lib.lip_nt_rows_f32, lib.lip_nn_rank_f32, lib.lip_nn_rows_f32,
+               lib.lip_nt_tiled_f32, lib.lip_nn_tiled_f32, lib.lip_syrk_f32,
                lib.lip_ggn_sweep_tf32):
         fn.restype = ctypes.c_int
     return lib

@@ -4,27 +4,46 @@ kernels, their plain versions and their gradients.
 * ``matmul_nt`` replaces ``_matmul_nt_pallas``
   (``laplace_inducing_points_tpu/ops/pallas/matmul.py:68``): ``(m, D)·(n, D)ᵀ``
   contracting the long shared axis without forming ``Bᵀ`` — the sample
-  projection ``U = ε Rᵀ`` and the cross-Gram ``Gxz = Rx Rzᵀ``.
+  projection ``U = ε Rᵀ``, the cross-Gram ``Gxz = Rx Rzᵀ``, the Woodbury
+  projection and the SLQ loop's ``Rz v``.
 * ``matmul_nn`` replaces ``_matmul_nn_pallas``
   (``laplace_inducing_points_tpu/ops/pallas/matmul.py:153``): a small
-  ``(m, z)`` times a long ``(z, D)`` — the sample push-back ``(·) R`` and the
-  backward passes of ``syrk`` and ``matmul_nt``.
+  ``(m, z)`` times a long ``(z, D)`` — the sample push-back ``(·) R``, the
+  SLQ loop's ``Rzᵀ u`` and the backward passes of ``syrk`` and ``matmul_nt``.
 
-Both kernels live in ``csrc/matmul.cu`` (64×64 output tiles, 32-wide
-contraction strips in shared memory, FFMA with a Kahan-compensated two-level
-sum; the source note says what bounds them on an H100). On a CPU tensor the
-wrappers compute the plain version; on a CUDA tensor they launch the kernel
-or raise.
+Each product takes one of several kernel paths, chosen from its shape alone
+by :func:`nt_plan` and :func:`nn_plan` (``csrc/matmul.cu`` and
+``csrc/matmul_tiled.cu``; the source notes say what bounds each on an H100):
+
+* ``"row"`` (at most ``ROW_MAX`` output rows): bound by one read of the long
+  operand — NT streams the rows of ``B`` and dots each with ``A``'s rows; NN
+  walks ``B``'s rows once per column, ``z`` split across blocks and the
+  partials summed in split order;
+* ``"rank"`` (NN, contraction depth at most ``RANK_MAX``): bound by one
+  write of ``C`` — the rank-one products of the SLQ loop's backward;
+* ``"tiled"`` (the rest): 3xTF32 tensor-core tiles (``mma.sync``, a
+  ``cp.async`` ring), NT split across blocks along ``D`` where its few output
+  tiles would leave SMs idle, partials summed in split order.
+
+Every path sums in FP32 with Kahan-compensated strips and deterministic
+reductions. On a CPU tensor the wrappers compute the plain version; on a CUDA
+tensor they launch a kernel path or raise.
 
 Each wrapper is a ``torch.autograd.Function`` with the reference's custom VJP
 (``_matmul_nt_bwd`` ``:105``, ``_matmul_nn_bwd`` ``:190``). The backward
-contractions run over the same long axis, so they go through the same true-f32
-kernels, never ``torch.matmul``; only the short operand is ever transposed into
-a contiguous copy. ``wrapper.launches`` counts the forward's kernel launches,
-``wrapper.backward_launches`` those of its backward.
+contractions run over the same long axis, so they go through the same kernels,
+never ``torch.matmul``; only the short operand is ever transposed into a
+contiguous copy. ``wrapper.launches`` counts the forward's kernel launches,
+``wrapper.backward_launches`` those of its backward, and
+``wrapper.path_launches`` every launch of the kernels by path (forward and
+backward, the sweep's FP32 products included).
 """
 
 from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -52,32 +71,137 @@ def matmul_nn_plain(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return torch.matmul(A, B)
 
 
+ROW_MAX = 8              # output rows of the row paths at most
+RANK_MAX = 16            # contraction depth of the rank path at most
+TILE_COLS = 128          # output columns of a tiled block
+SMALL_TILE_ROWS = 32     # output rows of a tiled block when m <= 32, else LARGE_TILE_ROWS
+LARGE_TILE_ROWS = 64
+BLOCKS_PER_SM = {SMALL_TILE_ROWS: 2, LARGE_TILE_ROWS: 1}   # resident tiled blocks per SM (registers)
+MIN_SPLIT_DEPTH = 1024   # the least contraction a split tiled block takes
+WAVE_FILL = 0.85         # the least share of the last wave's SMs a split plan keeps busy
+ROW_COLS = 512           # output columns of a block of the NN row path
+ROW_BLOCKS_PER_SM = 8    # NN row path: blocks per SM that its z split aims for
+ROW_MIN_DEPTH = 64       # the least z a block of the NN row path takes
+
+
+class Plan(NamedTuple):
+    """A product's kernel path: ``"row"``, ``"rank"`` or ``"tiled"``; the tiled
+    block's output rows (0 on the other paths); how many blocks share the
+    contraction (1: no split)."""
+    path: str
+    tile_rows: int
+    splits: int
+
+
+def _tiled_plan(m: int, n: int, depth: int, sms: int) -> Plan:
+    """Tiles of ``SMALL_TILE_ROWS`` or ``LARGE_TILE_ROWS`` x ``TILE_COLS`` over
+    ``(m, n)``; the contraction split into the fewest parts that keep every
+    wave at least ``WAVE_FILL`` full, none shallower than ``MIN_SPLIT_DEPTH``."""
+    rows = SMALL_TILE_ROWS if m <= SMALL_TILE_ROWS else LARGE_TILE_ROWS
+    tiles = math.ceil(m / rows) * math.ceil(n / TILE_COLS)
+    slots = BLOCKS_PER_SM[rows] * sms
+    most = max(1, depth // MIN_SPLIT_DEPTH)
+    for splits in range(1, most + 1):
+        blocks = tiles * splits
+        if blocks / (slots * math.ceil(blocks / slots)) >= WAVE_FILL:
+            return Plan("tiled", rows, splits)
+    return Plan("tiled", rows, most)
+
+
+def nt_plan(m: int, n: int, D: int, sms: int) -> Plan:
+    """The path of ``A (m, D) · B (n, D)ᵀ`` on a card with ``sms`` SMs."""
+    if m <= ROW_MAX:
+        return Plan("row", 0, 1)
+    return _tiled_plan(m, n, D, sms)
+
+
+def nn_plan(m: int, z: int, N: int, sms: int) -> Plan:
+    """The path of ``A (m, z) · B (z, N)`` on a card with ``sms`` SMs."""
+    if z <= RANK_MAX:
+        return Plan("rank", 0, 1)
+    if m <= ROW_MAX:
+        col_blocks = math.ceil(N / ROW_COLS)
+        splits = min(math.ceil(ROW_BLOCKS_PER_SM * sms / col_blocks), z // ROW_MIN_DEPTH)
+        return Plan("row", 0, max(1, splits))
+    return _tiled_plan(m, N, z, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _partials(plan: Plan, C: torch.Tensor) -> torch.Tensor:
+    """The split partials' workspace, or ``C`` itself without a split."""
+    if plan.splits == 1:
+        return C
+    return torch.empty((plan.splits, *C.shape), dtype=torch.float32, device=C.device)
+
+
+def launch_nt(A: torch.Tensor, B: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """``A Bᵀ`` of checked CUDA operands on ``plan``'s path: one launch,
+    counted in ``matmul_nt.path_launches``."""
+    (m, D), n = A.shape, B.shape[0]
+    C = torch.empty((m, n), dtype=torch.float32, device=A.device)
+    lib = load_library()
+    with torch.cuda.device(A.device):
+        if plan.path == "row":
+            status = lib.lip_nt_rows_f32(A.data_ptr(), B.data_ptr(), C.data_ptr(), m, n, D,
+                                         stream_of(A))
+        elif plan.path == "tiled":
+            status = lib.lip_nt_tiled_f32(A.data_ptr(), B.data_ptr(),
+                                          _partials(plan, C).data_ptr(), C.data_ptr(), m, n,
+                                          D, plan.tile_rows, plan.splits, stream_of(A))
+        else:
+            raise ValueError(f"matmul_nt has no {plan.path!r} path")
+    raise_on_status(status, f"matmul_nt ({plan.path})")
+    matmul_nt.path_launches[plan.path] += 1
+    return C
+
+
+def launch_nn(A: torch.Tensor, B: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """``A B`` of checked CUDA operands on ``plan``'s path: one launch,
+    counted in ``matmul_nn.path_launches``."""
+    (m, z), N = A.shape, B.shape[1]
+    C = torch.empty((m, N), dtype=torch.float32, device=A.device)
+    lib = load_library()
+    with torch.cuda.device(A.device):
+        if plan.path == "rank":
+            status = lib.lip_nn_rank_f32(A.data_ptr(), B.data_ptr(), C.data_ptr(), m, z, N,
+                                         stream_of(A))
+        elif plan.path == "row":
+            status = lib.lip_nn_rows_f32(A.data_ptr(), B.data_ptr(),
+                                         _partials(plan, C).data_ptr(), C.data_ptr(), m, z, N,
+                                         plan.splits, stream_of(A))
+        elif plan.path == "tiled":
+            status = lib.lip_nn_tiled_f32(A.data_ptr(), B.data_ptr(),
+                                          _partials(plan, C).data_ptr(), C.data_ptr(), m, z,
+                                          N, plan.tile_rows, plan.splits, stream_of(A))
+        else:
+            raise ValueError(f"matmul_nn has no {plan.path!r} path")
+    raise_on_status(status, f"matmul_nn ({plan.path})")
+    matmul_nn.path_launches[plan.path] += 1
+    return C
+
+
 def nt(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """``A Bᵀ`` of checked operands: the plain version on the CPU, one launch
-    of the NT kernel on CUDA. Counts nothing and records no gradient."""
+    of the NT kernel path that :func:`nt_plan` picks on CUDA. Records no
+    gradient."""
     if A.device.type == "cpu":
         return matmul_nt_plain(A, B)
     (m, D), n = A.shape, B.shape[0]
-    C = torch.empty((m, n), dtype=torch.float32, device=A.device)
-    with torch.cuda.device(A.device):
-        status = load_library().lip_matmul_nt_f32(A.data_ptr(), B.data_ptr(),
-                                                  C.data_ptr(), m, n, D, stream_of(A))
-    raise_on_status(status, "matmul_nt")
-    return C
+    return launch_nt(A, B, nt_plan(m, n, D, _sms(A.device)))
 
 
 def nn(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """``A B`` of checked operands: the plain version on the CPU, one launch
-    of the NN kernel on CUDA. Counts nothing and records no gradient."""
+    of the NN kernel path that :func:`nn_plan` picks on CUDA. Records no
+    gradient."""
     if A.device.type == "cpu":
         return matmul_nn_plain(A, B)
-    (m, z), D = A.shape, B.shape[1]
-    C = torch.empty((m, D), dtype=torch.float32, device=A.device)
-    with torch.cuda.device(A.device):
-        status = load_library().lip_matmul_nn_f32(A.data_ptr(), B.data_ptr(),
-                                                  C.data_ptr(), m, z, D, stream_of(A))
-    raise_on_status(status, "matmul_nn")
-    return C
+    (m, z), N = A.shape, B.shape[1]
+    return launch_nn(A, B, nn_plan(m, z, N, _sms(A.device)))
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -160,3 +284,5 @@ def matmul_nn(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 matmul_nt.launches = matmul_nt.backward_launches = 0
 matmul_nn.launches = matmul_nn.backward_launches = 0
+matmul_nt.path_launches = {"row": 0, "tiled": 0}
+matmul_nn.path_launches = {"row": 0, "rank": 0, "tiled": 0}

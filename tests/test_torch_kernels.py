@@ -56,7 +56,12 @@ def test_syrk_matches_pallas_interpret(shape):
                                rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("m,n,D", [(16, 8, 64), (13, 21, 70), (8, 8, 32)])
+# m = 1 and z = 1 reach the row and rank paths on the card, m = 16 the small tiles
+NT_SHAPES = [(16, 8, 64), (13, 21, 70), (8, 8, 32), (1, 21, 70), (16, 21, 75)]
+NN_SHAPES = [(16, 8, 64), (11, 19, 75), (1, 19, 75), (13, 1, 70), (16, 19, 64)]
+
+
+@pytest.mark.parametrize("m,n,D", NT_SHAPES)
 def test_matmul_nt_matches_pallas_interpret(m, n, D):
     A, B = _randn(m, D, seed=1), _randn(n, D, seed=2)
     ref = _interpret(jmm._matmul_nt_pallas, jnp.asarray(A), jnp.asarray(B), 8, 8, 32)
@@ -64,7 +69,7 @@ def test_matmul_nt_matches_pallas_interpret(m, n, D):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("m,z,D", [(16, 8, 64), (11, 19, 75)])
+@pytest.mark.parametrize("m,z,D", NN_SHAPES)
 def test_matmul_nn_matches_pallas_interpret(m, z, D):
     A, B = _randn(m, z, seed=3), _randn(z, D, seed=4)
     ref = _interpret(jmm._matmul_nn_pallas, jnp.asarray(A), jnp.asarray(B), 8, 32, 8)
@@ -79,6 +84,18 @@ def test_cpu_calls_never_count_launches():
     matmul_nt(A, B)
     matmul_nn(A, B.T.contiguous())
     assert {name: fn.launches for name, fn in WRAPPERS.items()} == before
+
+
+def test_cpu_calls_count_no_path_launches():
+    before = (dict(matmul_nt.path_launches), dict(matmul_nn.path_launches))
+    A = torch.randn(1, 40, requires_grad=True)
+    B = torch.randn(7, 40, requires_grad=True)
+    W = torch.randn(40, 1)
+    (matmul_nt(A, B).sum() + matmul_nn(W, A).sum()
+     + matmul_nn(torch.randn(16, 7), B).sum()).backward()
+    assert (matmul_nt.path_launches, matmul_nn.path_launches) == before
+    assert set(matmul_nt.path_launches) == {"row", "tiled"}
+    assert set(matmul_nn.path_launches) == {"row", "rank", "tiled"}
 
 
 def test_cpu_backward_never_counts_launches():
@@ -123,7 +140,7 @@ def test_syrk_vjp_matches_jax(interpret_pallas, shape):
     np.testing.assert_allclose(got[0], ref[0], rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("m,n,D", [(16, 8, 64), (13, 21, 70), (8, 8, 32)])
+@pytest.mark.parametrize("m,n,D", NT_SHAPES)
 def test_matmul_nt_vjp_matches_jax(interpret_pallas, m, n, D):
     A, B, ct = _randn(m, D, seed=7), _randn(n, D, seed=8), _randn(m, n, seed=9)
     ref, got = _vjps(lambda a, b: jmm._matmul_nt_diff(a, b, 8, 8, 32), matmul_nt,
@@ -132,7 +149,7 @@ def test_matmul_nt_vjp_matches_jax(interpret_pallas, m, n, D):
         np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("m,z,D", [(16, 8, 64), (11, 19, 75)])
+@pytest.mark.parametrize("m,z,D", NN_SHAPES)
 def test_matmul_nn_vjp_matches_jax(interpret_pallas, m, z, D):
     A, B, ct = _randn(m, z, seed=10), _randn(z, D, seed=11), _randn(m, D, seed=12)
     ref, got = _vjps(lambda a, b: jmm._matmul_nn_diff(a, b, 8, 32, 8), matmul_nn,
@@ -217,7 +234,8 @@ def test_library_name_tracks_the_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert {p.name for p in _build.sources()} >= {"syrk.cu", "matmul.cu", "gemm_f32.cuh",
-                                                  "ggn_sweep.cu"}
+                                                  "ggn_sweep.cu", "matmul_tiled.cu",
+                                                  "matmul.cuh"}
 
 
 @pytest.mark.cuda
@@ -259,6 +277,105 @@ def test_backward_matches_plain_on_cuda(name, shapes):
     assert WRAPPERS[name].backward_launches == before + (1 if name == "syrk" else 2)
     for g, r in zip(got, torch.autograd.grad(plain(*args), args, ct)):
         torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-4)
+
+
+# --- the kernel paths of B2 and B3: which shape takes which path ----------------
+# LeNet5 widths (d_z = 1000, d_x = 1280, D = 61,706) on a 132-SM H100.
+
+D_LENET = 61706
+PATH_SHAPES = {   # name -> (kind, m, n or z, long axis, path, tile rows)
+    "slq_rz_v": ("nt", 1, 1000, D_LENET, "row", 0),
+    "slq_backward_dA_nt": ("nt", 1, 1000, D_LENET, "row", 0),
+    "woodbury_residual_nt": ("nt", 16, 1000, D_LENET, "tiled", 32),
+    "woodbury_range_nt": ("nt", 240, 1000, D_LENET, "tiled", 64),
+    "serving_eps_rt": ("nt", 200, 1000, D_LENET, "tiled", 64),
+    "gxz": ("nt", 1280, 1000, D_LENET, "tiled", 64),
+    "sweep_highest_nt": ("nt", 240, 1280, D_LENET, "tiled", 64),
+    "slq_rzt_u": ("nn", 1, 1000, D_LENET, "row", 0),
+    "slq_rank_one": ("nn", 1000, 1, D_LENET, "rank", 0),
+    "woodbury_residual_nn": ("nn", 16, 1000, D_LENET, "tiled", 32),
+    "woodbury_range_nn": ("nn", 240, 1000, D_LENET, "tiled", 64),
+    "serving_push_back": ("nn", 200, 1000, D_LENET, "tiled", 64),
+    "syrk_backward": ("nn", 1000, 1000, D_LENET, "tiled", 64),
+    "gxz_backward_dB": ("nn", 1000, 1280, D_LENET, "tiled", 64),
+    "woodbury_backward_dB": ("nn", 1000, 240, D_LENET, "tiled", 64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PATH_SHAPES))
+def test_planner_sends_each_path_shape_to_its_path(name):
+    kind, m, k, D, path, rows = PATH_SHAPES[name]
+    plan = (tmm.nt_plan if kind == "nt" else tmm.nn_plan)(m, k, D, 132)
+    assert (plan.path, plan.tile_rows) == (path, rows)
+    assert plan.splits >= 1
+    depth = D if kind == "nt" else k       # the contraction the splits share
+    if plan.path == "tiled" and plan.splits > 1:
+        assert depth // plan.splits >= tmm.MIN_SPLIT_DEPTH
+    if plan.path == "row" and kind == "nn" and plan.splits > 1:
+        assert depth // plan.splits >= tmm.ROW_MIN_DEPTH
+    if plan.path in ("row", "rank") and kind == "nt":
+        assert plan.splits == 1
+
+
+@pytest.mark.parametrize("kind,m,k,D,splits", [
+    ("nt", 200, 1000, D_LENET, 4),      # 32 tiles: one wave of 128 blocks
+    ("nt", 240, 1000, D_LENET, 4),
+    ("nt", 1280, 1000, D_LENET, 3),     # 160 tiles: 480 blocks, four waves 91% full
+    ("nt", 16, 1000, D_LENET, 29),      # 8 small tiles: 232 blocks on 264 slots
+    ("nt", 200, 1000, 3000, 2),         # short D: no block below 1024 of it
+    ("nn", 200, 1000, D_LENET, 1),      # 1932 tiles fill the card unsplit
+    ("nn", 1, 1000, D_LENET, 9),        # row path: 121 column blocks x 9
+    ("nn", 1, 300, D_LENET, 4),         # row path: no block below 64 rows of z
+])
+def test_planner_splits(kind, m, k, D, splits):
+    assert (tmm.nt_plan if kind == "nt" else tmm.nn_plan)(m, k, D, 132).splits == splits
+
+
+@pytest.mark.parametrize("m,n", [(9, 1), (33, 1000), (500, 700), (4096, 4096)])
+def test_tiled_splits_fill_the_waves(m, n):
+    """A split plan keeps every wave WAVE_FILL full, unless the depth forbids
+    more splits; without a split none is needed."""
+    sms = 132
+    plan = tmm.nt_plan(m, n, D_LENET, sms)
+    tiles = -(-m // plan.tile_rows) * -(-n // tmm.TILE_COLS)
+    slots = tmm.BLOCKS_PER_SM[plan.tile_rows] * sms
+    blocks = tiles * plan.splits
+    fill = blocks / (slots * -(-blocks // slots))
+    assert fill >= tmm.WAVE_FILL or plan.splits == D_LENET // tmm.MIN_SPLIT_DEPTH
+
+
+CUDA_PATH_CASES = [   # (kind, A shape, B shape, path, A offset in floats)
+    ("nt", (1, 61706), (1000, 61706), "row", 0),
+    ("nt", (1, 3001), (70, 3001), "row", 1),          # odd D, A 4 bytes off
+    ("nt", (3, 3002), (130, 3002), "row", 2),         # D = 2 mod 4, A 8 bytes off
+    ("nt", (16, 3001), (130, 3001), "tiled", 0),
+    ("nt", (240, 3002), (1000, 3002), "tiled", 2),
+    ("nn", (1, 1000), (1000, 3001), "row", 1),
+    ("nn", (5, 45), (45, 1001), "row", 0),
+    ("nn", (1000, 1), (1, 3001), "rank", 0),
+    ("nn", (70, 3), (3, 1002), "rank", 2),
+    ("nn", (13, 45), (45, 1001), "tiled", 0),
+    ("nn", (240, 1000), (1000, 3002), "tiled", 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,sa,sb,path,offset", CUDA_PATH_CASES)
+def test_each_path_matches_plain_on_cuda(kind, sa, sb, path, offset):
+    """Each path against its plain version at odd D and rows that start off a
+    16-byte boundary; the planner picks the path and its count rises by one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (run python3 chip_smoke.py there)")
+    buf = torch.randn(int(np.prod(sa)) + offset, device="cuda")
+    A = buf[offset:].view(sa)
+    B = torch.randn(*sb, device="cuda")
+    fn, plain = ((matmul_nt, matmul_nt_plain) if kind == "nt"
+                 else (matmul_nn, matmul_nn_plain))
+    before = dict(fn.path_launches)
+    got = fn(A, B)
+    torch.cuda.synchronize()
+    assert fn.path_launches[path] == before[path] + 1
+    torch.testing.assert_close(got, plain(A, B), rtol=1e-5, atol=1e-4)
 
 
 # --- B4, the GGN probe sweep ``scale·(V Rᵀ) R`` ------------------------------------
