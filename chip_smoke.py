@@ -13,7 +13,10 @@ exits non-zero without printing a result:
    float64 product, at the serving path's shapes and one small ragged shape;
    each path of B2 and B3 (row, rank, tiled) at the shape it serves on the
    main paths and at a ragged odd-D shape (rows off a 16-byte boundary), with
-   the path each call took; CUDA-event times against both bounds;
+   the path each call took; the coherent part (bias) of the tiled paths' error
+   at the serving and cross-Gram shapes, random and all-positive operands,
+   against cuBLAS FP32's; CUDA-event times of one call and of a run of calls
+   against the bound of the arithmetic each path does;
 4. main path: writes a seeded LeNet5 MAP file and an inducing set, runs
    ``laplace_inducing_points_tpu_torch.cli.evaluate.main`` for
    ``configs/scale/lenet5_mnist.yml`` (M=100, S=200, batch 256) and checks
@@ -35,7 +38,8 @@ exits non-zero without printing a result:
    s/step and the split of a warm Z step;
 8. gradient agreement: one Z step's KL and dL/dZ through the kernels, through
    the plain versions and through a float64 evaluation of the Gram algebra
-   (same rows);
+   (same rows); the kernels' KL value must be well closer to float64 than the
+   plain path's;
 9. the GGN probe sweep (TF32 tensor cores) against its plain FP32 version,
    against two cuBLAS TF32 products and against float64, at the stochastic
    objective's shapes (V (240, 61706), R (1280, 61706), scale 468.75), the
@@ -51,7 +55,8 @@ exits non-zero without printing a result:
 11. estimator agreement: one stochastic Z step's KL and dL/dZ on the same
     probes through the kernels, through the kernels with the FP32 sweep,
     through the plain versions and in float64, beside the spread of the
-    estimator over four probe draws.
+    estimator over eight probe draws, each also in float64 for the root
+    mean square of the TF32 path's shift of the KL value.
 
 The line before the last is the card's ``nvidia-smi`` line; the one before
 it is the per-kernel JSON; the last line is ``{"ok": true, "device": ...}``.
@@ -74,6 +79,8 @@ import torch
 SEED = 20261016
 REL_TOL = 1e-4          # kernel vs plain, relative Frobenius
 F64_RATIO = 2.0         # kernel's f64 error may be at most this times the plain's
+BIAS_TOL = 1e-8         # coherent relative error always allowed: a sixth of FP32's 2^-24
+KL_CLOSER = 2.0         # phase 8: the kernels' KL value at least this much closer to f64
 FP32_FLOPS = 67e12      # H100 SXM FP32 (FFMA) peak, FLOP/s
 TF32_FLOPS = 495e12     # H100 SXM dense TF32 tensor-core peak, FLOP/s
 TF32X3_FLOPS = TF32_FLOPS / 3   # three TF32 tensor-core passes per FP32 product
@@ -115,13 +122,17 @@ def phase_build() -> float:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+    from laplace_inducing_points_tpu_torch.ops.cuda.matmul import geometry
+    print(f"B2/B3 path planner's geometry (from the library): "
+          f"{geometry(torch.device('cuda', torch.cuda.current_device()))}")
     return seconds
 
 
-def cuda_ms(fn, reps: int = 7, min_ms: float = 2.0) -> float:
-    """Median CUDA-event time of ``fn()`` over ``reps`` runs after a warm-up;
-    a run is enough back-to-back calls to last ``min_ms`` (at most 50), so
-    that a short kernel is timed without the host's launch cost."""
+def cuda_ms(fn, reps: int = 7, min_ms: float = 0.0) -> float:
+    """Median CUDA-event time of ``fn()`` over ``reps`` runs after a warm-up.
+    A run is one call, or with ``min_ms`` enough back-to-back calls to last
+    that long (at most 50), which hides the host's cost of a call behind the
+    device's work when the call is short."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -129,7 +140,9 @@ def cuda_ms(fn, reps: int = 7, min_ms: float = 2.0) -> float:
     fn()
     end.record()
     torch.cuda.synchronize()
-    calls = max(1, min(50, math.ceil(min_ms / max(start.elapsed_time(end), 1e-3))))
+    calls = 1
+    if min_ms > 0:
+        calls = max(1, min(50, math.ceil(min_ms / max(start.elapsed_time(end), 1e-3))))
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -148,28 +161,42 @@ def _rel(x: torch.Tensor, ref: torch.Tensor) -> float:
                  / torch.linalg.norm(ref.double().ravel()))
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, peak: float) -> dict:
     """The least time of a call on the card: the larger of its operations
-    over the FP32 peak and its bytes (inputs read once, outputs written once)
-    over the memory rate; and the 3xTF32 tensor-core time of the same
-    operations, which the precision contract also allows."""
-    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    over ``peak``, the rate of the arithmetic the kernel does, and its bytes
+    (inputs read once, outputs written once) over the memory rate. The FP32
+    (FFMA) figure rides along for comparison."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bound_3xtf32_ms": max(flops / TF32X3_FLOPS * 1e3, t_bytes),
+            "bound_fp32_ms": max(flops / FP32_FLOPS * 1e3, t_bytes),
             "gflop": flops / 1e9}
 
 
-def _work(name: str, *shapes) -> dict:
+def _peak(paths: set) -> float:
+    """The arithmetic of a call that launched these paths of B2 and B3: the
+    tiled paths run 3xTF32 on the tensor cores, every other kernel FP32 FFMA."""
+    return TF32X3_FLOPS if any(p.endswith(".tiled") for p in paths) else FP32_FLOPS
+
+
+def _work(name: str, shapes, peak: float) -> dict:
     """Operations and bytes of a product at these operand shapes."""
     if name == "syrk":                      # A (d, D): the lower half of A Aᵀ
         (d, D), = shapes
-        return bound(d * (d + 1) * D, 4 * (d * D + d * d))
+        return bound(d * (d + 1) * D, 4 * (d * D + d * d), peak)
     if name == "matmul_nt":                 # (m, D) · (n, D)ᵀ
         (m, D), (n, _) = shapes
-        return bound(2 * m * n * D, 4 * (m * D + n * D + m * n))
+        return bound(2 * m * n * D, 4 * (m * D + n * D + m * n), peak)
     (m, z), (_, D) = shapes                 # matmul_nn: (m, z) · (z, D)
-    return bound(2 * m * z * D, 4 * (m * z + z * D + m * D))
+    return bound(2 * m * z * D, 4 * (m * z + z * D + m * D), peak)
+
+
+def _with_paths(call):
+    """``(call(), the paths of B2 and B3 it launched)``."""
+    before = _path_counts()
+    out = call()
+    after = _path_counts()
+    return out, {key for key, n in after.items() if n > before[key]}
 
 
 LIBRARY = {   # one PyTorch call that computes each forward product
@@ -179,8 +206,19 @@ LIBRARY = {   # one PyTorch call that computes each forward product
 }
 
 
+def _bias(x: torch.Tensor, ref: torch.Tensor) -> float:
+    """The coherent part of ``x``'s error: beta in x - ref = beta ref + (the
+    rest, orthogonal to ref)."""
+    e, r = (x.double() - ref.double()).ravel(), ref.double().ravel()
+    return float(torch.dot(e, r) / torch.dot(r, r))
+
+
 def _check_kernel(name, kernel, plain, inputs, timed: bool) -> dict:
-    out_k = kernel(*inputs)
+    """The kernel against its plain version and float64 (REL_TOL, F64_RATIO);
+    if ``timed``, CUDA-event ms of one call (``ms``) and of a run of calls
+    (``run_ms``), the plain version's and the library call's, and the bound of
+    the arithmetic the call did."""
+    out_k, paths = _with_paths(lambda: kernel(*inputs))
     out_p = plain(*inputs)
     out_64 = plain(*(t.double() for t in inputs))
     torch.cuda.synchronize()
@@ -190,19 +228,23 @@ def _check_kernel(name, kernel, plain, inputs, timed: bool) -> dict:
     max_abs = float((out_k - out_p).abs().max())
     shape = " x ".join(str(tuple(t.shape)) for t in inputs)
     row = {"rel_vs_plain": rel_kp, "rel_vs_f64": err_k, "plain_rel_vs_f64": err_p,
-           "max_abs_err": max_abs}
+           "bias": _bias(out_k, out_64), "plain_bias": _bias(out_p, out_64),
+           "outputs": out_k.numel(), "max_abs_err": max_abs, "paths": paths}
     if timed:
         row["ms"] = cuda_ms(lambda: kernel(*inputs))
+        row["run_ms"] = cuda_ms(lambda: kernel(*inputs), min_ms=2.0)
         row["plain_ms"] = cuda_ms(lambda: plain(*inputs))
         row["library_ms"] = cuda_ms(lambda: LIBRARY[name](*inputs))
-        row.update(_work(name, *(t.shape for t in inputs)))
+        row["library_run_ms"] = cuda_ms(lambda: LIBRARY[name](*inputs), min_ms=2.0)
+        row.update(_work(name, [t.shape for t in inputs], _peak(paths)))
     print(f"  {name:9s} {shape:28s} rel_vs_plain={rel_kp:.3e} "
           f"rel_vs_f64={err_k:.3e} plain_rel_vs_f64={err_p:.3e} "
+          f"bias={row['bias']:+.2e} plain_bias={row['plain_bias']:+.2e} "
           f"max_abs_err={max_abs:.3e}"
-          + (f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-             f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
-             f"({row['bound_by']}; 3xTF32 {row['bound_3xtf32_ms']:.4f}; "
-             f"{row['gflop']:.1f} GFLOP)" if timed else ""),
+          + (f" ms={row['ms']:.4f} (run {row['run_ms']:.4f}) plain_ms={row['plain_ms']:.4f} "
+             f"library_ms={row['library_ms']:.4f} (run {row['library_run_ms']:.4f}) "
+             f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; FP32 FFMA "
+             f"{row['bound_fp32_ms']:.4f}; {row['gflop']:.1f} GFLOP)" if timed else ""),
           flush=True)
     if not (rel_kp <= REL_TOL):
         raise AssertionError(f"{name} {shape}: kernel vs plain {rel_kp:.3e} > {REL_TOL}")
@@ -234,14 +276,35 @@ PATHS = {
 
 def _check_path(name, path, kernel, plain, inputs, timed: bool) -> dict:
     """``_check_kernel``, and the call went through ``path``."""
-    before = dict(kernel.path_launches)
     row = _check_kernel(name, kernel, plain, inputs, timed)
-    torch.cuda.synchronize()
-    taken = {p for p, n in kernel.path_launches.items() if n > before[p]}
-    if taken != {path}:
+    if row["paths"] != {f"{name}.{path}"}:
         shape = " x ".join(str(tuple(t.shape)) for t in inputs)
-        raise AssertionError(f"{name} {shape} took the paths {sorted(taken)}, not {path!r}")
+        raise AssertionError(f"{name} {shape} took the paths {sorted(row['paths'])}, "
+                             f"not {path!r}")
     return row
+
+
+def _check_bias(rows: list) -> None:
+    """The tiled paths' error must not be coherent: the tensor cores truncate
+    their FP32 sums toward zero, and a product's coherent error (its bias)
+    passes into the KL value amplified by gamma/alpha where round-to-nearest
+    errors cancel. Gate: |bias| <= F64_RATIO x the larger of cuBLAS FP32's
+    |bias| and its noise floor (its relative error over sqrt(outputs)), or
+    BIAS_TOL. A truncated 8-term sum loses 3.5e-8 to 3.9e-8 of its value on
+    average on an H100, so a kernel that does not take that loss back, or
+    takes it back twice, fails by 3x."""
+    failed = []
+    for label, row in rows:
+        floor = row["plain_rel_vs_f64"] / math.sqrt(row["outputs"])
+        limit = max(F64_RATIO * max(abs(row["plain_bias"]), floor), BIAS_TOL)
+        ok = abs(row["bias"]) <= limit
+        print(f"  bias {label:40s} kernel {row['bias']:+.3e}, cuBLAS FP32 "
+              f"{row['plain_bias']:+.3e} (noise floor {floor:.3e}); limit {limit:.3e} "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            failed.append(label)
+    if failed:
+        raise AssertionError(f"coherent error of the tiled paths above the limit: {failed}")
 
 
 def phase_kernels() -> dict:
@@ -249,7 +312,8 @@ def phase_kernels() -> dict:
     (M=100, K=10 -> d=1000; D=61706; S=200) and a small ragged shape; each
     path of B2 and B3 at the stochastic objective's shapes (SLQ products at one
     row, rank-one backward products, Woodbury probes: 16 and 240) and at a
-    ragged odd-D shape with rows off a 16-byte boundary."""
+    ragged odd-D shape with rows off a 16-byte boundary; the tiled paths' bias
+    at the serving and cross-Gram (batch 128 -> 1280 rows) shapes."""
     print("== phase 3: kernels against their plain versions", flush=True)
     from laplace_inducing_points_tpu_torch.ops.cuda.matmul import (matmul_nn,
                                                                    matmul_nn_plain,
@@ -260,6 +324,9 @@ def phase_kernels() -> dict:
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda")
 
     d, D, S = 1000, 61706, 200
     cases = {
@@ -307,6 +374,20 @@ def phase_kernels() -> dict:
         row = _check_path(name, path, kernel, plain, inputs, timed)
         if key is not None:
             results[key] = row
+
+    print("  coherent error of the tiled paths against float64:", flush=True)
+    bias_rows = [("serving NT, normal operands", results["matmul_nt"]),
+                 ("serving NN, normal operands", results["matmul_nn"])]
+    for label, name, shapes, draw in (
+            ("serving NT, positive operands", "matmul_nt", ((S, D), (d, D)), rand),
+            ("serving NN, positive operands", "matmul_nn", ((S, d), (d, D)), rand),
+            ("cross-Gram NT, normal operands", "matmul_nt", ((1280, D), (d, D)), randn),
+            ("cross-Gram NT, positive operands", "matmul_nt", ((1280, D), (d, D)), rand)):
+        kernel, plain = wrappers[name]
+        inputs = tuple(draw(*shape) for shape in shapes)
+        bias_rows.append((label, _check_path(name, "tiled", kernel, plain, inputs, False)))
+        del inputs
+    _check_bias(bias_rows)
     return results
 
 
@@ -532,11 +613,12 @@ def _check_backward(name, kernel, plain, inputs, need, ct, timed=False,
     times of the backward alone (the graph is kept from one forward) and of
     ``library``, one PyTorch call doing the backward's product, where there
     is one."""
-    out_k, wrt_k, g_k = _grads(kernel, inputs, need, ct, torch.float32)
+    (out_k, wrt_k, g_k), paths = _with_paths(
+        lambda: _grads(kernel, inputs, need, ct, torch.float32))
     out_p, wrt_p, g_p = _grads(plain, inputs, need, ct, torch.float32)
     _, _, g_64 = _grads(plain, inputs, need, ct, torch.float64)
     torch.cuda.synchronize()
-    row = {"rel_vs_plain": 0.0, "max_abs_err": 0.0}
+    row = {"rel_vs_plain": 0.0, "max_abs_err": 0.0, "paths": paths}
     shape = " x ".join(str(tuple(t.shape)) for t in inputs)
     for i, (gk, gp, g64) in enumerate(zip(g_k, g_p, g_64)):
         rel_kp, err_k, err_p = _rel(gk, gp), _rel(gk, g64), _rel(gp, g64)
@@ -587,12 +669,13 @@ def phase_backward() -> dict:
     rows["syrk_backward"] = _check_backward(
         "syrk_backward", syrk, syrk_plain, (Rz,), (True,), ct_zz, timed=True,
         library=lambda: torch.mm(sym_zz, Rz))
-    rows["syrk_backward"].update(bound(2 * dz * dz * D, 4 * (2 * dz * D + dz * dz)))
+    rows["syrk_backward"].update(bound(2 * dz * dz * D, 4 * (2 * dz * D + dz * dz),
+                                       _peak(rows["syrk_backward"]["paths"])))
     rows["matmul_nt_backward"] = _check_backward(
         "matmul_nt_backward", matmul_nt, matmul_nt_plain, (Rx, Rz), (False, True),
         ct_xz, timed=True, library=lambda: torch.mm(ct_xz.T, Rx))
-    rows["matmul_nt_backward"].update(bound(2 * dz * dx * D,
-                                            4 * (dx * D + dx * dz + dz * D)))
+    rows["matmul_nt_backward"].update(bound(2 * dz * dx * D, 4 * (dx * D + dx * dz + dz * D),
+                                            _peak(rows["matmul_nt_backward"]["paths"])))
     # both gradients of each product once, and B3's own backward (the
     # stochastic objective's Woodbury correction) at the shape of B1's
     # backward product; its library time is the two torch.mm of its products
@@ -603,7 +686,8 @@ def phase_backward() -> dict:
         "matmul_nn_backward", matmul_nn, matmul_nn_plain, (A_nn, Rz), (True, True),
         ct_nn, timed=True, library=lambda: (torch.mm(ct_nn, Rz.T), torch.mm(A_nn.T, ct_nn)))
     rows["matmul_nn_backward"].update(bound(4 * dz * dz * D,
-                                            4 * (dz * dz + 2 * dz * D + dz * dz + dz * D)))
+                                            4 * (dz * dz + 2 * dz * D + dz * dz + dz * D),
+                                            _peak(rows["matmul_nn_backward"]["paths"])))
     # the SLQ loop's one-row products: B2's backward at one row (dA on B3's row
     # path, dB rank-one) and B3's (dA on B2's row path, dB rank-one); library:
     # the two torch.mm of the same products
@@ -611,15 +695,17 @@ def phase_backward() -> dict:
     rows["matmul_nt_backward.row"] = _check_backward(
         "matmul_nt_backward", matmul_nt, matmul_nt_plain, (v, Rz), (True, True), ct_v,
         timed=True, library=lambda: (torch.mm(ct_v, Rz), torch.mm(ct_v.T, v)))
-    rows["matmul_nt_backward.row"].update(bound(4 * dz * D, 4 * (dz + dz * D + D + dz * D)))
+    rows["matmul_nt_backward.row"].update(bound(4 * dz * D, 4 * (dz + dz * D + D + dz * D),
+                                                _peak(rows["matmul_nt_backward.row"]["paths"])))
     u, ct_u = randn(1, dz), randn(1, D)
     rows["matmul_nn_backward.row"] = _check_backward(
         "matmul_nn_backward", matmul_nn, matmul_nn_plain, (u, Rz), (True, True), ct_u,
         timed=True, library=lambda: (torch.mm(ct_u, Rz.T), torch.mm(u.T, ct_u)))
-    rows["matmul_nn_backward.row"].update(bound(4 * dz * D, 4 * (D + dz * D + dz + dz * D)))
-    for name in ("matmul_nt_backward.row", "matmul_nn_backward.row"):
-        print(f"  {name:22s} bound_ms={rows[name]['bound_ms']:.4f} ({rows[name]['bound_by']})",
-              flush=True)
+    rows["matmul_nn_backward.row"].update(bound(4 * dz * D, 4 * (D + dz * D + dz + dz * D),
+                                                _peak(rows["matmul_nn_backward.row"]["paths"])))
+    for name, row in rows.items():
+        print(f"  {name:22s} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; FP32 FFMA "
+              f"{row['bound_fp32_ms']:.4f}); paths {sorted(row['paths'])}", flush=True)
     for name, fn, plain, shapes, ct_shape in (
             ("syrk_backward", syrk, syrk_plain, [(77, 301)], (77, 77)),
             ("matmul_nt_backward", matmul_nt, matmul_nt_plain, [(13, 333), (70, 333)],
@@ -751,7 +837,8 @@ def phase_gradient_agreement(train: dict) -> None:
     versions and through a float64 evaluation of the Gram algebra, from the
     same rows; each ∂L/∂Rz is pulled back through the same f32 row build. The
     kernel path must be no further from float64 than F64_RATIO times the plain
-    path, for the value and for dL/dZ."""
+    path, for the value and for dL/dZ, and its KL value KL_CLOSER times closer
+    to float64 than the plain path's."""
     print("== phase 8: gradient agreement of one Z step", flush=True)
     from laplace_inducing_points_tpu_torch.core import operators as ops
     from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nt_plain
@@ -793,6 +880,12 @@ def phase_gradient_agreement(train: dict) -> None:
             raise AssertionError(f"{what}: kernel path {err['kernel']:.3e} from float64, "
                                  f"more than {F64_RATIO} x the plain path's "
                                  f"{err['plain']:.3e}")
+    # the compensated kernels keep the KL value well closer to float64 than
+    # cuBLAS FP32 (3.9-32x on an H100); a coherent bias in Gxz loses that
+    if not (KL_CLOSER * val_err["kernel"] <= val_err["plain"]):
+        raise AssertionError(f"KL value: kernel path {val_err['kernel']:.3e} from float64, "
+                             f"not {KL_CLOSER} x closer than the plain path's "
+                             f"{val_err['plain']:.3e}")
 
 
 @contextlib.contextmanager
@@ -988,13 +1081,20 @@ def phase_stochastic(workdir: Path, train: dict) -> dict:
     return {"launches": launches, "ip": ip}
 
 
+ESTIMATOR_DRAWS = 8   # probe draws behind the estimator's spread and the TF32 shift
+
+
 def phase_estimator_agreement(train: dict, ip: dict) -> None:
     """One stochastic Z step's KL and dL/dZ on the same probes: (a) the
     kernel path, (b) the kernels with the FP32 sweep, (c) the plain FP32
     path, each against float64 of the same row algebra, each ∂L/∂Rz pulled
     back through the same f32 row build; beside the estimator's spread over
-    four probe draws of the kernel path. Gates: (b) no further from float64
-    than F64_RATIO times (c); (a) within 0.1 times the spread."""
+    ESTIMATOR_DRAWS probe draws of the kernel path. Gates: (b) no further
+    from float64 than F64_RATIO times (c); (a) within 0.1 times the spread:
+    for the KL value, the root mean square over the draws of (a)'s shift from
+    float64 on each (one draw's shift against a spread of four swung from
+    0.0003 to 0.13 of it over probe seeds, with FFMA B2/B3 kernels too); for dL/dZ,
+    the first draw's."""
     print("== phase 11: estimator agreement of one stochastic Z step", flush=True)
     import functools
 
@@ -1031,11 +1131,17 @@ def phase_estimator_agreement(train: dict, ip: dict) -> None:
     probes = draw()
     out = {key: value_and_dz(probes, prods) for key, prods in products.items()}
     out["float64"] = value_and_dz(probes, products["plain"], torch.float64)
-    draws = [value_and_dz(draw(), products["kernel"]) for _ in range(4)]
+    pairs = [(out["kernel"], out["float64"])]    # (kernel path, float64) per draw
+    for _ in range(ESTIMATOR_DRAWS - 1):
+        more = draw()
+        pairs.append((value_and_dz(more, products["kernel"]),
+                      value_and_dz(more, products["plain"], torch.float64)))
+    draws = [kernel for kernel, _ in pairs]
     torch.cuda.synchronize()
     v64, g64 = out["float64"]
     val_err = {key: abs(v - v64) / abs(v64) for key, (v, _) in out.items()}
     grad_err = {key: _rel(g, g64) for key, (_, g) in out.items()}
+    shift_rms = math.sqrt(statistics.fmean((k[0] - f[0]) ** 2 for k, f in pairs))
     values = torch.tensor([v for v, _ in draws], dtype=torch.float64)
     grads = torch.stack([g.double() for _, g in draws])
     mean_g = grads.mean(0)
@@ -1046,12 +1152,16 @@ def phase_estimator_agreement(train: dict, ip: dict) -> None:
         print(f"  {key:17s} KL {out[key][0]:.10g} (rel vs f64 {val_err[key]:.3e}, abs "
               f"{abs(out[key][0] - v64):.4g}); dL/dZ rel-L2 vs f64 {grad_err[key]:.3e}")
     print(f"  float64           KL {v64:.12g}")
-    print(f"  spread over 4 probe draws (kernel path): KL std {value_spread:.4g} "
+    print(f"  spread over {len(draws)} probe draws (kernel path): KL std {value_spread:.4g} "
           f"(relative {value_spread / abs(v64):.3e}; values "
           f"{', '.join(f'{v:.10g}' for v in values.tolist())}); dL/dZ relative spread "
           f"{grad_spread:.3e}")
-    print(f"  TF32 shift / spread: KL {abs(out['kernel'][0] - v64) / value_spread:.3e}, "
-          f"dL/dZ {grad_err['kernel'] / grad_spread:.3e}")
+    print(f"  TF32 shift of the KL value on each draw: "
+          f"{', '.join(f'{k[0] - f[0]:+.4g}' for k, f in pairs)}; root mean square "
+          f"{shift_rms:.4g}")
+    print(f"  TF32 shift / spread: KL {shift_rms / value_spread:.3e} (first draw alone "
+          f"{abs(out['kernel'][0] - v64) / value_spread:.3e}), dL/dZ "
+          f"{grad_err['kernel'] / grad_spread:.3e}")
     if not all(math.isfinite(v) for v, _ in out.values()):
         raise AssertionError(f"KL values not finite: {out}")
     for what, err in (("KL value", val_err), ("dL/dZ", grad_err)):
@@ -1059,9 +1169,10 @@ def phase_estimator_agreement(train: dict, ip: dict) -> None:
             raise AssertionError(f"{what}: FP32 kernel path {err['kernel_fp32_sweep']:.3e} "
                                  f"from float64, more than {F64_RATIO} x the plain path's "
                                  f"{err['plain']:.3e}")
-    if not abs(out["kernel"][0] - v64) < 0.1 * value_spread:
-        raise AssertionError(f"KL value: the TF32 path is {abs(out['kernel'][0] - v64):.4g} "
-                             f"from float64, not below 0.1 x the spread {value_spread:.4g}")
+    if not shift_rms < 0.1 * value_spread:
+        raise AssertionError(f"KL value: the TF32 path is {shift_rms:.4g} from float64 "
+                             f"(root mean square over {len(pairs)} draws), not below 0.1 x "
+                             f"the spread {value_spread:.4g}")
     if not grad_err["kernel"] < 0.1 * grad_spread:
         raise AssertionError(f"dL/dZ: the TF32 path is {grad_err['kernel']:.3e} from "
                              f"float64, not below 0.1 x the spread {grad_spread:.3e}")

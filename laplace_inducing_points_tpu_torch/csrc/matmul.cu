@@ -177,9 +177,6 @@ inline int nt_rows_a_width(const float* A, const float* B, int64_t K) {
   return 1;
 }
 
-constexpr int COL_THREADS = 128;   // NN row and rank paths: 4 warps
-constexpr int COL_PER_THREAD = 4;  // a block covers 512 output columns
-constexpr int COL_BLOCK = COL_THREADS * COL_PER_THREAD;
 constexpr int NNR_STAGE = 256;     // rows of A's chunk staged in shared memory per pass
 constexpr int NNR_STRIP = 8;       // rows of B per Kahan strip
 
@@ -280,8 +277,6 @@ nn_rows_kernel(const float* __restrict__ A, const float* __restrict__ B,
 }
 
 constexpr int RANK_ROWS = 8;   // output rows per thread of the rank path
-constexpr int64_t ROW_MAX = 8;    // output rows of the row paths at most
-constexpr int64_t RANK_MAX = 16;  // contraction depth of the rank path at most
 
 template <int ZR, int W>
 __global__ void __launch_bounds__(COL_THREADS)

@@ -1,6 +1,7 @@
-// Shared pieces of the FP32 NT and NN products (matmul.cu, matmul_tiled.cu): vector
-// loads and stores of 1, 2 or 4 floats, the width a launch may use, compensated
-// sums, and the deterministic second pass over split partials.
+// Shared pieces of the FP32 NT and NN products (matmul.cu, matmul_tiled.cu): the
+// skinny paths' limits, vector loads and stores of 1, 2 or 4 floats, the width a
+// launch may use, compensated sums, and the deterministic second pass over split
+// partials.
 //
 // Vector width: D = 61,706 is 2 mod 4, so every other row of a (rows, D) matrix
 // starts 8 bytes off a 16-byte boundary. A launch takes the widest W in {4, 2, 1}
@@ -13,6 +14,12 @@
 #include <cuda_runtime.h>
 
 namespace lip_mm {
+
+constexpr int64_t ROW_MAX = 8;     // output rows of the row paths at most
+constexpr int64_t RANK_MAX = 16;   // contraction depth of the rank path at most
+constexpr int COL_THREADS = 128;   // NN row and rank paths: 4 warps
+constexpr int COL_PER_THREAD = 4;  // a block covers 512 output columns
+constexpr int COL_BLOCK = COL_THREADS * COL_PER_THREAD;
 
 inline int vec_width(const void* p, const void* q, int64_t ld_p, int64_t ld_q) {
   for (int w = 4; w > 1; w /= 2) {

@@ -27,8 +27,10 @@
 // folded into the running total by Kahan, its accumulator starting at the negated
 // compensation, which also takes back the mean loss of the truncations, TRUNCATION
 // times the strip's sum: on an H100 an 8-term sum loses 3.5e-8 of its value on
-// average, for any shape (measured while this kernel was designed; the bias
-// coefficient that scripts/torch_matmul_paths.py prints is what is left).
+// average for operands of both signs, at any shape, and 3.9e-8 for all-positive
+// ones. What is left (the bias, about 5e-11 and 5e-9 relative) is gated against
+// cuBLAS's in chip_smoke.py phase 3, where a kernel without the correction, or with
+// twice it, fails.
 //
 // Movement: operands go into shared memory as raw FP32 through a cp.async ring of
 // STAGES strips (the copy of strip s + STAGES - 1 overlaps the products of strip s),
@@ -70,6 +72,11 @@ struct Tile {
   static constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
   static constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * 4;
 };
+
+using SmallTile = Tile<1, 4, false>;   // 32 x 128 outputs, 4 warps
+using LargeTile = Tile<2, 4, false>;   // 64 x 128 outputs, 8 warps
+constexpr int TILE_COLS = LargeTile::BN;
+static_assert(SmallTile::BN == TILE_COLS, "both tile heights share the columns");
 
 // x rounded to TF32 (10 explicit mantissa bits), to nearest, ties away from zero.
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -356,21 +363,57 @@ cudaError_t launch_tile(int w, unsigned blocks, cudaStream_t s, const float* A,
 template <bool B_KN>
 int launch(const float* A, const float* B, float* part, float* C, int64_t m, int64_t n,
            int64_t K, int64_t tile_rows, int64_t splits, void* stream) {
-  if (m <= 0 || n <= 0 || K <= 0 || splits <= 0 || (tile_rows != 32 && tile_rows != 64) ||
-      (splits == 1) != (part == C)) {
+  if (m <= 0 || n <= 0 || K <= 0 || splits <= 0 ||
+      (tile_rows != SmallTile::BM && tile_rows != LargeTile::BM) || (splits == 1) != (part == C)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t tiles = ((m + tile_rows - 1) / tile_rows) * ((n + 127) / 128);
+  const int64_t tiles = ((m + tile_rows - 1) / tile_rows) * ((n + TILE_COLS - 1) / TILE_COLS);
   if (tiles * splits > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = static_cast<unsigned>(tiles * splits);
   const int64_t chunk = ((K + splits - 1) / splits + BK - 1) / BK * BK;
   const int w = vec_width(A, B, K, B_KN ? n : K);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      tile_rows == 64 ? launch_tile<2, 4, B_KN>(w, blocks, s, A, B, part, m, n, K, chunk)
-                      : launch_tile<1, 4, B_KN>(w, blocks, s, A, B, part, m, n, K, chunk);
+      tile_rows == LargeTile::BM
+          ? launch_tile<2, 4, B_KN>(w, blocks, s, A, B, part, m, n, K, chunk)
+          : launch_tile<1, 4, B_KN>(w, blocks, s, A, B, part, m, n, K, chunk);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return static_cast<int>(split_reduce(part, C, m * n, splits, s));
+}
+
+// least = min(least, the blocks of this instance that one SM of the current
+// device holds at once).
+template <int WARPS_M, int WARPS_N, bool B_KN, bool FOLD8, int W>
+cudaError_t occupancy(int& least) {
+  using T = Tile<WARPS_M, WARPS_N, B_KN>;
+  const auto kernel = tiled_kernel<WARPS_M, WARPS_N, B_KN, FOLD8, W>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, T::THREADS,
+                                                        T::SMEM_BYTES);
+  }
+  if (err == cudaSuccess && blocks < least) least = blocks;
+  return err;
+}
+
+// The resident blocks per SM of a tile height and layout: the fewest over the
+// instances a launch may pick (vector width, fold).
+template <int WARPS_M, int WARPS_N, bool B_KN>
+cudaError_t resident_blocks(int64_t& out) {
+  int least = 1 << 30;
+  const cudaError_t errs[] = {occupancy<WARPS_M, WARPS_N, B_KN, false, 4>(least),
+                              occupancy<WARPS_M, WARPS_N, B_KN, false, 2>(least),
+                              occupancy<WARPS_M, WARPS_N, B_KN, false, 1>(least),
+                              occupancy<WARPS_M, WARPS_N, B_KN, true, 4>(least),
+                              occupancy<WARPS_M, WARPS_N, B_KN, true, 2>(least),
+                              occupancy<WARPS_M, WARPS_N, B_KN, true, 1>(least)};
+  for (const cudaError_t err : errs) {
+    if (err != cudaSuccess) return err;
+  }
+  out = least;
+  return cudaSuccess;
 }
 
 }  // namespace lip_tc
@@ -378,6 +421,37 @@ int launch(const float* A, const float* B, float* part, float* C, int64_t m, int
 // Plain C entry points, loaded with ctypes. Each launches on `stream`, does not
 // synchronise, and returns cudaGetLastError() so that a refused launch is seen.
 // tile_rows is 32 or 64 (the block's output rows); the block's columns are 128.
+
+// What the wrapper's path planner needs of the NT and NN kernels on the current
+// device, into out[0..11): its SMs; the most output rows of the row paths; the
+// deepest contraction of the rank path; the output columns of an NN row block; the
+// output columns of a tiled block; the small and the large tiled block heights; the
+// resident tiled blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of
+// NT at the small and the large height, then of NN.
+extern "C" int lip_matmul_geometry(int64_t* out) {
+  using namespace lip_tc;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = sms;
+  out[1] = lip_mm::ROW_MAX;
+  out[2] = lip_mm::RANK_MAX;
+  out[3] = lip_mm::COL_BLOCK;
+  out[4] = TILE_COLS;
+  out[5] = SmallTile::BM;
+  out[6] = LargeTile::BM;
+  const cudaError_t errs[] = {resident_blocks<1, 4, false>(out[7]),
+                              resident_blocks<2, 4, false>(out[8]),
+                              resident_blocks<1, 4, true>(out[9]),
+                              resident_blocks<2, 4, true>(out[10])};
+  for (const cudaError_t e : errs) {
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaSuccess);
+}
 
 // C (m, n) = A (m, K) B (n, K)^T.
 extern "C" int lip_nt_tiled_f32(const float* A, const float* B, float* part, float* C,

@@ -96,11 +96,13 @@ def load_library() -> ctypes.CDLL:
     lib.lip_nn_rows_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, ptr]
     lib.lip_nt_tiled_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, ptr]
     lib.lip_nn_tiled_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, ptr]
+    lib.lip_matmul_geometry.argtypes = [ptr]
     lib.lip_syrk_f32.argtypes = [ptr, ptr, i64, i64, ptr]
     lib.lip_ggn_sweep_tf32.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64,
                                        ctypes.c_float, ptr]
     for fn in (lib.lip_nt_rows_f32, lib.lip_nn_rank_f32, lib.lip_nn_rows_f32,
-               lib.lip_nt_tiled_f32, lib.lip_nn_tiled_f32, lib.lip_syrk_f32,
+               lib.lip_nt_tiled_f32, lib.lip_nn_tiled_f32, lib.lip_matmul_geometry,
+               lib.lip_syrk_f32,
                lib.lip_ggn_sweep_tf32):
         fn.restype = ctypes.c_int
     return lib

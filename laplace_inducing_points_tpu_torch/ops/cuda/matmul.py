@@ -13,13 +13,16 @@ kernels, their plain versions and their gradients.
 
 Each product takes one of several kernel paths, chosen from its shape alone
 by :func:`nt_plan` and :func:`nn_plan` (``csrc/matmul.cu`` and
-``csrc/matmul_tiled.cu``; the source notes say what bounds each on an H100):
+``csrc/matmul_tiled.cu``; the source notes say what bounds each on an H100).
+The planners are pure functions of the shape and a :class:`Geometry`: what
+the kernels' library reports of its tiles, its limits and their occupancy on
+the card (:func:`geometry`).
 
-* ``"row"`` (at most ``ROW_MAX`` output rows): bound by one read of the long
+* ``"row"`` (at most ``row_max`` output rows): bound by one read of the long
   operand — NT streams the rows of ``B`` and dots each with ``A``'s rows; NN
   walks ``B``'s rows once per column, ``z`` split across blocks and the
   partials summed in split order;
-* ``"rank"`` (NN, contraction depth at most ``RANK_MAX``): bound by one
+* ``"rank"`` (NN, contraction depth at most ``rank_max``): bound by one
   write of ``C`` — the rank-one products of the SLQ loop's backward;
 * ``"tiled"`` (the rest): 3xTF32 tensor-core tiles (``mma.sync``, a
   ``cp.async`` ring), NT split across blocks along ``D`` where its few output
@@ -33,7 +36,9 @@ Each wrapper is a ``torch.autograd.Function`` with the reference's custom VJP
 (``_matmul_nt_bwd`` ``:105``, ``_matmul_nn_bwd`` ``:190``). The backward
 contractions run over the same long axis, so they go through the same kernels,
 never ``torch.matmul``; only the short operand is ever transposed into a
-contiguous copy. ``wrapper.launches`` counts the forward's kernel launches,
+contiguous copy. A call with no gradient to record skips the Function,
+whose ``apply`` would only add host time. ``wrapper.launches`` counts the
+forward's kernel launches,
 ``wrapper.backward_launches`` those of its backward, and
 ``wrapper.path_launches`` every launch of the kernels by path (forward and
 backward, the sweep's FP32 products included).
@@ -41,6 +46,7 @@ backward, the sweep's FP32 products included).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -71,17 +77,23 @@ def matmul_nn_plain(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return torch.matmul(A, B)
 
 
-ROW_MAX = 8              # output rows of the row paths at most
-RANK_MAX = 16            # contraction depth of the rank path at most
-TILE_COLS = 128          # output columns of a tiled block
-SMALL_TILE_ROWS = 32     # output rows of a tiled block when m <= 32, else LARGE_TILE_ROWS
-LARGE_TILE_ROWS = 64
-BLOCKS_PER_SM = {SMALL_TILE_ROWS: 2, LARGE_TILE_ROWS: 1}   # resident tiled blocks per SM (registers)
 MIN_SPLIT_DEPTH = 1024   # the least contraction a split tiled block takes
 WAVE_FILL = 0.85         # the least share of the last wave's SMs a split plan keeps busy
-ROW_COLS = 512           # output columns of a block of the NN row path
 ROW_BLOCKS_PER_SM = 8    # NN row path: blocks per SM that its z split aims for
 ROW_MIN_DEPTH = 64       # the least z a block of the NN row path takes
+
+
+class Geometry(NamedTuple):
+    """What the planners need of the kernels on one card, as the kernels'
+    library reports it (``lip_matmul_geometry`` in ``csrc/matmul_tiled.cu``)."""
+    sms: int
+    row_max: int                 # output rows of the row paths at most
+    rank_max: int                # contraction depth of the rank path at most
+    row_cols: int                # output columns of a block of the NN row path
+    tile_cols: int               # output columns of a tiled block
+    tile_rows: tuple[int, int]   # output rows of a tiled block: small, large
+    nt_blocks: tuple[int, int]   # resident tiled NT blocks per SM: small, large tiles
+    nn_blocks: tuple[int, int]   # the same for NN
 
 
 class Plan(NamedTuple):
@@ -93,13 +105,15 @@ class Plan(NamedTuple):
     splits: int
 
 
-def _tiled_plan(m: int, n: int, depth: int, sms: int) -> Plan:
-    """Tiles of ``SMALL_TILE_ROWS`` or ``LARGE_TILE_ROWS`` x ``TILE_COLS`` over
+def _tiled_plan(m: int, n: int, depth: int, geo: Geometry,
+                blocks_per_sm: tuple[int, int]) -> Plan:
+    """Tiles of the small height (when ``m`` fits it) or the large one over
     ``(m, n)``; the contraction split into the fewest parts that keep every
     wave at least ``WAVE_FILL`` full, none shallower than ``MIN_SPLIT_DEPTH``."""
-    rows = SMALL_TILE_ROWS if m <= SMALL_TILE_ROWS else LARGE_TILE_ROWS
-    tiles = math.ceil(m / rows) * math.ceil(n / TILE_COLS)
-    slots = BLOCKS_PER_SM[rows] * sms
+    small, large = geo.tile_rows
+    rows = small if m <= small else large
+    tiles = math.ceil(m / rows) * math.ceil(n / geo.tile_cols)
+    slots = blocks_per_sm[rows != small] * geo.sms
     most = max(1, depth // MIN_SPLIT_DEPTH)
     for splits in range(1, most + 1):
         blocks = tiles * splits
@@ -108,27 +122,35 @@ def _tiled_plan(m: int, n: int, depth: int, sms: int) -> Plan:
     return Plan("tiled", rows, most)
 
 
-def nt_plan(m: int, n: int, D: int, sms: int) -> Plan:
-    """The path of ``A (m, D) · B (n, D)ᵀ`` on a card with ``sms`` SMs."""
-    if m <= ROW_MAX:
+def nt_plan(m: int, n: int, D: int, geo: Geometry) -> Plan:
+    """The path of ``A (m, D) · B (n, D)ᵀ`` on a card of geometry ``geo``."""
+    if m <= geo.row_max:
         return Plan("row", 0, 1)
-    return _tiled_plan(m, n, D, sms)
+    return _tiled_plan(m, n, D, geo, geo.nt_blocks)
 
 
-def nn_plan(m: int, z: int, N: int, sms: int) -> Plan:
-    """The path of ``A (m, z) · B (z, N)`` on a card with ``sms`` SMs."""
-    if z <= RANK_MAX:
+def nn_plan(m: int, z: int, N: int, geo: Geometry) -> Plan:
+    """The path of ``A (m, z) · B (z, N)`` on a card of geometry ``geo``."""
+    if z <= geo.rank_max:
         return Plan("rank", 0, 1)
-    if m <= ROW_MAX:
-        col_blocks = math.ceil(N / ROW_COLS)
-        splits = min(math.ceil(ROW_BLOCKS_PER_SM * sms / col_blocks), z // ROW_MIN_DEPTH)
+    if m <= geo.row_max:
+        col_blocks = math.ceil(N / geo.row_cols)
+        splits = min(math.ceil(ROW_BLOCKS_PER_SM * geo.sms / col_blocks), z // ROW_MIN_DEPTH)
         return Plan("row", 0, max(1, splits))
-    return _tiled_plan(m, N, z, sms)
+    return _tiled_plan(m, N, z, geo, geo.nn_blocks)
 
 
 @functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def geometry(device: torch.device) -> Geometry:
+    """The planners' :class:`Geometry` of a CUDA ``device``, from the
+    kernels' library (built at the first call)."""
+    out = (ctypes.c_int64 * 11)()
+    with torch.cuda.device(device):
+        raise_on_status(load_library().lip_matmul_geometry(out), "lip_matmul_geometry")
+    v = list(out)
+    if min(v[7:]) < 1:
+        raise RuntimeError(f"a tiled NT/NN kernel fits no block on an SM of {device}: {v}")
+    return Geometry(*v[:5], tuple(v[5:7]), tuple(v[7:9]), tuple(v[9:11]))
 
 
 def _partials(plan: Plan, C: torch.Tensor) -> torch.Tensor:
@@ -191,7 +213,7 @@ def nt(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     if A.device.type == "cpu":
         return matmul_nt_plain(A, B)
     (m, D), n = A.shape, B.shape[0]
-    return launch_nt(A, B, nt_plan(m, n, D, _sms(A.device)))
+    return launch_nt(A, B, nt_plan(m, n, D, geometry(A.device)))
 
 
 def nn(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -201,11 +223,29 @@ def nn(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     if A.device.type == "cpu":
         return matmul_nn_plain(A, B)
     (m, z), N = A.shape, B.shape[1]
-    return launch_nn(A, B, nn_plan(m, z, N, _sms(A.device)))
+    return launch_nn(A, B, nn_plan(m, z, N, geometry(A.device)))
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
+
+
+def _records_graph(A: torch.Tensor, B: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and (A.requires_grad or B.requires_grad)
+
+
+def _nt_forward(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    C = nt(A, B)
+    if _on_cuda(A):
+        matmul_nt.launches += 1
+    return C
+
+
+def _nn_forward(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    C = nn(A, B)
+    if _on_cuda(A):
+        matmul_nn.launches += 1
+    return C
 
 
 def matmul_nt_vjp(A, B, ct, need_a: bool = True, need_b: bool = True):
@@ -233,10 +273,7 @@ def matmul_nn_vjp(A, B, ct, need_a: bool = True, need_b: bool = True):
 class _MatmulNT(torch.autograd.Function):
     @staticmethod
     def forward(A, B):
-        C = nt(A, B)
-        if _on_cuda(A):
-            matmul_nt.launches += 1
-        return C
+        return _nt_forward(A, B)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -251,10 +288,7 @@ class _MatmulNT(torch.autograd.Function):
 class _MatmulNN(torch.autograd.Function):
     @staticmethod
     def forward(A, B):
-        C = nn(A, B)
-        if _on_cuda(A):
-            matmul_nn.launches += 1
-        return C
+        return _nn_forward(A, B)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -271,7 +305,7 @@ def matmul_nt(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     _check_pair(A, B)
     if A.shape[1] != B.shape[1]:
         raise ValueError(f"contraction mismatch: {tuple(A.shape)} x {tuple(B.shape)}ᵀ")
-    return _MatmulNT.apply(A, B)
+    return _MatmulNT.apply(A, B) if _records_graph(A, B) else _nt_forward(A, B)
 
 
 def matmul_nn(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -279,7 +313,7 @@ def matmul_nn(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     _check_pair(A, B)
     if A.shape[1] != B.shape[0]:
         raise ValueError(f"contraction mismatch: {tuple(A.shape)} x {tuple(B.shape)}")
-    return _MatmulNN.apply(A, B)
+    return _MatmulNN.apply(A, B) if _records_graph(A, B) else _nn_forward(A, B)
 
 
 matmul_nt.launches = matmul_nt.backward_launches = 0

@@ -280,9 +280,12 @@ def test_backward_matches_plain_on_cuda(name, shapes):
 
 
 # --- the kernel paths of B2 and B3: which shape takes which path ----------------
-# LeNet5 widths (d_z = 1000, d_x = 1280, D = 61,706) on a 132-SM H100.
+# LeNet5 widths (d_z = 1000, d_x = 1280, D = 61,706) on an H100: the geometry
+# that the kernels' library reports there (chip_smoke.py prints it in phase 2).
 
 D_LENET = 61706
+H100 = tmm.Geometry(sms=132, row_max=8, rank_max=16, row_cols=512, tile_cols=128,
+                    tile_rows=(32, 64), nt_blocks=(2, 1), nn_blocks=(2, 1))
 PATH_SHAPES = {   # name -> (kind, m, n or z, long axis, path, tile rows)
     "slq_rz_v": ("nt", 1, 1000, D_LENET, "row", 0),
     "slq_backward_dA_nt": ("nt", 1, 1000, D_LENET, "row", 0),
@@ -305,7 +308,7 @@ PATH_SHAPES = {   # name -> (kind, m, n or z, long axis, path, tile rows)
 @pytest.mark.parametrize("name", sorted(PATH_SHAPES))
 def test_planner_sends_each_path_shape_to_its_path(name):
     kind, m, k, D, path, rows = PATH_SHAPES[name]
-    plan = (tmm.nt_plan if kind == "nt" else tmm.nn_plan)(m, k, D, 132)
+    plan = (tmm.nt_plan if kind == "nt" else tmm.nn_plan)(m, k, D, H100)
     assert (plan.path, plan.tile_rows) == (path, rows)
     assert plan.splits >= 1
     depth = D if kind == "nt" else k       # the contraction the splits share
@@ -328,20 +331,74 @@ def test_planner_sends_each_path_shape_to_its_path(name):
     ("nn", 1, 300, D_LENET, 4),         # row path: no block below 64 rows of z
 ])
 def test_planner_splits(kind, m, k, D, splits):
-    assert (tmm.nt_plan if kind == "nt" else tmm.nn_plan)(m, k, D, 132).splits == splits
+    assert (tmm.nt_plan if kind == "nt" else tmm.nn_plan)(m, k, D, H100).splits == splits
 
 
 @pytest.mark.parametrize("m,n", [(9, 1), (33, 1000), (500, 700), (4096, 4096)])
 def test_tiled_splits_fill_the_waves(m, n):
     """A split plan keeps every wave WAVE_FILL full, unless the depth forbids
     more splits; without a split none is needed."""
-    sms = 132
-    plan = tmm.nt_plan(m, n, D_LENET, sms)
-    tiles = -(-m // plan.tile_rows) * -(-n // tmm.TILE_COLS)
-    slots = tmm.BLOCKS_PER_SM[plan.tile_rows] * sms
+    plan = tmm.nt_plan(m, n, D_LENET, H100)
+    tiles = -(-m // plan.tile_rows) * -(-n // H100.tile_cols)
+    slots = H100.nt_blocks[H100.tile_rows.index(plan.tile_rows)] * H100.sms
     blocks = tiles * plan.splits
     fill = blocks / (slots * -(-blocks // slots))
     assert fill >= tmm.WAVE_FILL or plan.splits == D_LENET // tmm.MIN_SPLIT_DEPTH
+
+
+@pytest.mark.parametrize("nt_blocks,splits", [((2, 1), 4), ((2, 2), 8), ((2, 3), 11)])
+def test_planner_follows_the_reported_occupancy(nt_blocks, splits):
+    """The splits of serving's NT (32 tiles of 64 rows) follow the resident
+    blocks per SM that the library reports, not a fixed table."""
+    geo = H100._replace(nt_blocks=nt_blocks)
+    assert tmm.nt_plan(200, 1000, D_LENET, geo).splits == splits
+
+
+class _FakeLibrary:
+    def __init__(self, report):
+        self.report = report
+
+    def lip_matmul_geometry(self, out):
+        for i, v in enumerate(self.report):
+            out[i] = v
+        return 0
+
+
+@pytest.mark.parametrize("blocks,ok", [((2, 1, 2, 1), True), ((2, 0, 2, 1), False)])
+def test_geometry_reads_the_library_report(monkeypatch, blocks, ok):
+    """``geometry`` turns the library's eleven numbers into a Geometry, and
+    refuses a tiled kernel that fits no block on an SM."""
+    import contextlib
+    report = (132, 8, 16, 512, 128, 32, 64, *blocks)
+    monkeypatch.setattr(tmm, "load_library", lambda: _FakeLibrary(report))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    tmm.geometry.cache_clear()
+    try:
+        if ok:
+            assert tmm.geometry(torch.device("cuda", 0)) == H100
+        else:
+            with pytest.raises(RuntimeError, match="fits no block"):
+                tmm.geometry(torch.device("cuda", 0))
+    finally:
+        tmm.geometry.cache_clear()
+
+
+@pytest.mark.parametrize("wrapper", ["matmul_nt", "matmul_nn"])
+def test_calls_without_a_graph_skip_the_function(wrapper):
+    """With no gradient to record, the wrappers compute the product without
+    their autograd Function (no graph node); with one, through it."""
+    fn, plain = ((matmul_nt, matmul_nt_plain) if wrapper == "matmul_nt"
+                 else (matmul_nn, matmul_nn_plain))
+    A = torch.randn(3, 40)
+    B = torch.randn(7, 40) if wrapper == "matmul_nt" else torch.randn(40, 7)
+    out = fn(A, B)
+    assert out.grad_fn is None
+    torch.testing.assert_close(out, plain(A, B), rtol=0, atol=0)
+    Ag = A.clone().requires_grad_()
+    with torch.no_grad():
+        assert fn(Ag, B).grad_fn is None
+    node = type(fn(Ag, B).grad_fn).__name__
+    assert node.startswith("_MatmulN"), node
 
 
 CUDA_PATH_CASES = [   # (kind, A shape, B shape, path, A offset in floats)
