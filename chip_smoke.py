@@ -10,12 +10,14 @@ exits non-zero without printing a result:
    ``nvidia-smi`` name and power limit, sets the f32 policy (TF32 off);
 2. build: compiles the CUDA kernels from ``laplace_inducing_points_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version and against a
-   float64 product, at the serving path's shapes and one small ragged shape;
+   float64 product, at the serving path's shapes and small ragged shapes (the
+   Gram at odd D with rows off a 16-byte boundary, below one split's depth and
+   at a d that is not a multiple of its tile, exactly symmetric at each);
    each path of B2 and B3 (row, rank, tiled) at the shape it serves on the
    main paths and at a ragged odd-D shape (rows off a 16-byte boundary), with
-   the path each call took; the coherent part (bias) of the tiled paths' error
-   at the serving and cross-Gram shapes, random and all-positive operands,
-   against cuBLAS FP32's; CUDA-event times of one call and of a run of calls
+   the path each call took; the coherent part (bias) of the tiled paths' and
+   the Gram's error at the serving and cross-Gram shapes, random and
+   all-positive operands, against cuBLAS FP32's; CUDA-event times of one call and of a run of calls
    against the bound of the arithmetic each path does;
 4. main path: writes a seeded LeNet5 MAP file and an inducing set, runs
    ``laplace_inducing_points_tpu_torch.cli.evaluate.main`` for
@@ -43,8 +45,9 @@ exits non-zero without printing a result:
 9. the GGN probe sweep (TF32 tensor cores) against its plain FP32 version,
    against two cuBLAS TF32 products and against float64, at the stochastic
    objective's shapes (V (240, 61706), R (1280, 61706), scale 468.75), the
-   residual sweep's P = 16 and a ragged shape; its gradient in V against
-   float64 autograd; CUDA-event times;
+   residual sweep's P = 16 and ragged shapes (V off a 16-byte boundary,
+   P > 256); its gradient in V against float64 autograd; its bias against
+   cuBLAS TF32's, random and all-positive operands; CUDA-event times;
 10. stochastic path: ``cli.train_scale.main train_inducing --objective
     stochastic`` on phase 7's MAP weights (the config as shipped: 256 probes,
     1 SLQ probe, 200 Krylov steps; only ip.epochs cut to 3), then
@@ -123,8 +126,10 @@ def phase_build() -> float:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
     from laplace_inducing_points_tpu_torch.ops.cuda.matmul import geometry
-    print(f"B2/B3 path planner's geometry (from the library): "
-          f"{geometry(torch.device('cuda', torch.cuda.current_device()))}")
+    from laplace_inducing_points_tpu_torch.ops.cuda.sweep import sweep_geometry
+    device = torch.device("cuda", torch.cuda.current_device())
+    print(f"B1/B2/B3 planners' geometry (from the library): {geometry(device)}")
+    print(f"B4 planner's geometry (from the library): {sweep_geometry(device)}")
     return seconds
 
 
@@ -174,8 +179,9 @@ def bound(flops: float, nbytes: float, peak: float) -> dict:
 
 
 def _peak(paths: set) -> float:
-    """The arithmetic of a call that launched these paths of B2 and B3: the
-    tiled paths run 3xTF32 on the tensor cores, every other kernel FP32 FFMA."""
+    """The arithmetic of a call that launched these kernel paths: the tiled
+    paths of B1, B2 and B3 run 3xTF32 on the tensor cores, the row and rank
+    paths FP32 FFMA."""
     return TF32X3_FLOPS if any(p.endswith(".tiled") for p in paths) else FP32_FLOPS
 
 
@@ -192,7 +198,7 @@ def _work(name: str, shapes, peak: float) -> dict:
 
 
 def _with_paths(call):
-    """``(call(), the paths of B2 and B3 it launched)``."""
+    """``(call(), the kernel paths of B1, B2 and B3 it launched)``."""
     before = _path_counts()
     out = call()
     after = _path_counts()
@@ -284,27 +290,29 @@ def _check_path(name, path, kernel, plain, inputs, timed: bool) -> dict:
     return row
 
 
-def _check_bias(rows: list) -> None:
-    """The tiled paths' error must not be coherent: the tensor cores truncate
-    their FP32 sums toward zero, and a product's coherent error (its bias)
-    passes into the KL value amplified by gamma/alpha where round-to-nearest
-    errors cancel. Gate: |bias| <= F64_RATIO x the larger of cuBLAS FP32's
-    |bias| and its noise floor (its relative error over sqrt(outputs)), or
-    BIAS_TOL. A truncated 8-term sum loses 3.5e-8 to 3.9e-8 of its value on
-    average on an H100, so a kernel that does not take that loss back, or
-    takes it back twice, fails by 3x."""
+def _check_bias(rows: list, tol: float = BIAS_TOL, yardstick: str = "cuBLAS FP32") -> None:
+    """A kernel's error must not be coherent: the tensor cores truncate their
+    FP32 sums toward zero (and TF32 operands that are not rounded first), and a
+    product's coherent error (its bias) passes into the KL value amplified by
+    gamma/alpha (the sweep's by gamma into the S_X trace) where round-to-nearest
+    errors cancel. Each row is (label, the kernel's bias, the yardstick's bias,
+    the yardstick's relative error vs float64, outputs). Gate: |bias| <=
+    F64_RATIO x the larger of the yardstick's |bias| and its noise floor (its
+    relative error over sqrt(outputs)), or ``tol``. For the FP32 kernels a
+    truncated 8-term sum loses 3.5e-8 to 3.9e-8 of its value on average on an
+    H100, so a kernel that does not take that loss back, or takes it back
+    twice, fails by 3x."""
     failed = []
-    for label, row in rows:
-        floor = row["plain_rel_vs_f64"] / math.sqrt(row["outputs"])
-        limit = max(F64_RATIO * max(abs(row["plain_bias"]), floor), BIAS_TOL)
-        ok = abs(row["bias"]) <= limit
-        print(f"  bias {label:40s} kernel {row['bias']:+.3e}, cuBLAS FP32 "
-              f"{row['plain_bias']:+.3e} (noise floor {floor:.3e}); limit {limit:.3e} "
-              f"{'ok' if ok else 'FAILED'}", flush=True)
+    for label, bias, base, base_err, outputs in rows:
+        floor = base_err / math.sqrt(outputs)
+        limit = max(F64_RATIO * max(abs(base), floor), tol)
+        ok = abs(bias) <= limit
+        print(f"  bias {label:44s} kernel {bias:+.3e}, {yardstick} {base:+.3e} (noise floor "
+              f"{floor:.3e}); limit {limit:.3e} {'ok' if ok else 'FAILED'}", flush=True)
         if not ok:
             failed.append(label)
     if failed:
-        raise AssertionError(f"coherent error of the tiled paths above the limit: {failed}")
+        raise AssertionError(f"coherent error above the limit: {failed}")
 
 
 def phase_kernels() -> dict:
@@ -330,7 +338,11 @@ def phase_kernels() -> dict:
 
     d, D, S = 1000, 61706, 200
     cases = {
-        "syrk": (syrk, syrk_plain, [(randn(d, D),), (randn(77, 301),)]),
+        # the Gram at the serving shape, a small ragged one, odd D with rows off a
+        # 16-byte boundary, D below one split's depth, d not a multiple of the tile
+        "syrk": (syrk, syrk_plain, [(randn(d, D),), (randn(77, 301),),
+                                    (_offset(randn(130, 3001), 1),), (randn(d, 600),),
+                                    (_offset(randn(200, 5002), 2),)]),
         "matmul_nt": (matmul_nt, matmul_nt_plain,
                       [(randn(S, D), randn(d, D)), (randn(13, 333), randn(70, 333))]),
         "matmul_nn": (matmul_nn, matmul_nn_plain,
@@ -342,10 +354,11 @@ def phase_kernels() -> dict:
             row = _check_kernel(name, kernel, plain, inputs, timed=(i == 0))
             if i == 0:
                 results[name] = row
-    C = syrk(randn(d, D))
-    if not torch.equal(C, C.T):
-        raise AssertionError("syrk output is not exactly symmetric")
-    print("  syrk output exactly symmetric: True")
+            if name == "syrk":
+                C = syrk(*inputs)
+                if not torch.equal(C, C.T):
+                    raise AssertionError(f"syrk {tuple(inputs[0].shape)}: not exactly symmetric")
+    print("  syrk output exactly symmetric at every shape: True")
 
     print("  paths of B2 and B3 (CUDA-event ms per call over a run of calls):", flush=True)
     wrappers = {"matmul_nt": (matmul_nt, matmul_nt_plain),
@@ -375,9 +388,14 @@ def phase_kernels() -> dict:
         if key is not None:
             results[key] = row
 
-    print("  coherent error of the tiled paths against float64:", flush=True)
+    print("  coherent error of the tiled paths and the Gram against float64:", flush=True)
     bias_rows = [("serving NT, normal operands", results["matmul_nt"]),
-                 ("serving NN, normal operands", results["matmul_nn"])]
+                 ("serving NN, normal operands", results["matmul_nn"]),
+                 ("Gram, normal operands", results["syrk"])]
+    A = rand(d, D)
+    bias_rows.append(("Gram, positive operands", _check_kernel("syrk", syrk, syrk_plain, (A,),
+                                                               False)))
+    del A
     for label, name, shapes, draw in (
             ("serving NT, positive operands", "matmul_nt", ((S, D), (d, D)), rand),
             ("serving NN, positive operands", "matmul_nn", ((S, d), (d, D)), rand),
@@ -387,7 +405,8 @@ def phase_kernels() -> dict:
         inputs = tuple(draw(*shape) for shape in shapes)
         bias_rows.append((label, _check_path(name, "tiled", kernel, plain, inputs, False)))
         del inputs
-    _check_bias(bias_rows)
+    _check_bias([(label, row["bias"], row["plain_bias"], row["plain_rel_vs_f64"], row["outputs"])
+                 for label, row in bias_rows])
     return results
 
 
@@ -916,10 +935,17 @@ def _sweep_work(P: int, d: int, D: int) -> dict:
             "gflop": flops / 1e9, "two_pass_bytes_ms": 4 * (2 * P * D + 2 * d * D) / HBM_BYTES * 1e3}
 
 
+SWEEP_BIAS_TOL = 1e-6   # coherent relative error always allowed in the TF32 sweep
+
+
 def phase_sweep() -> dict:
     """B4 against its plain FP32 version, two cuBLAS TF32 products and
-    float64, forward and gradient in V. Gate: the kernel is no further from
-    float64 than F64_RATIO times the cuBLAS TF32 products."""
+    float64, forward and gradient in V, at the path shapes and ragged ones (V
+    off a 16-byte boundary; P > 256, two probe groups). Gates: the kernel is
+    no further from float64 than F64_RATIO times the cuBLAS TF32 products, and
+    its bias passes _check_bias against cuBLAS TF32's (at least
+    SWEEP_BIAS_TOL), on random operands at every shape and on all-positive
+    ones at the path shape."""
     print("== phase 9: the GGN probe sweep (TF32) against FP32, cuBLAS TF32 and float64",
           flush=True)
     from laplace_inducing_points_tpu_torch.ops.cuda.sweep import ggn_sweep, ggn_sweep_plain
@@ -928,11 +954,18 @@ def phase_sweep() -> dict:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
-    rows = {}
-    for P, d, D, scale, timed in ((240, 1280, 61706, 468.75, True),
-                                  (16, 1280, 61706, 468.75, False),
-                                  (17, 70, 333, 0.5, False)):
-        V, R, ct = randn(P, D), randn(d, D), randn(P, D)
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda")
+
+    rows, bias_rows, too_far = {}, [], []
+    for P, d, D, scale, offset, draw, timed in ((240, 1280, 61706, 468.75, 0, randn, True),
+                                                (240, 1280, 61706, 468.75, 0, rand, False),
+                                                (16, 1280, 61706, 468.75, 0, randn, False),
+                                                (240, 130, 3001, 468.75, 1, randn, False),
+                                                (300, 70, 333, 0.5, 0, randn, False),
+                                                (17, 70, 333, 0.5, 0, randn, False)):
+        V, R, ct = draw(P, D), draw(d, D), randn(P, D)
+        V = _offset(V, offset) if offset else V
         fwd = {"kernel": ggn_sweep(V, R, scale), "plain": ggn_sweep_plain(V, R, scale),
                "library": _library_sweep(V, R, scale)}
         ref = ggn_sweep_plain(V.double(), R.double(), scale)
@@ -944,35 +977,51 @@ def phase_sweep() -> dict:
         bwd = {"kernel": dv_kernel, "plain": ggn_sweep_plain(ct, R, scale),
                "library": _library_sweep(ct, R, scale)}
         torch.cuda.synchronize()
+        kind = "positive" if draw is rand else "normal"
         for what, outs, exact in (("forward", fwd, ref), ("dV", bwd, dv_64)):
             err = {key: _rel(out, exact) for key, out in outs.items()}
             to_plain = _rel(outs["kernel"], outs["plain"])
-            print(f"  ggn_sweep {what:7s} V {(P, D)} R {(d, D)} scale {scale}: rel vs f64 "
-                  f"kernel {err['kernel']:.3e}, cuBLAS TF32 {err['library']:.3e}, plain FP32 "
-                  f"{err['plain']:.3e}; kernel vs plain FP32 {to_plain:.3e}", flush=True)
+            print(f"  ggn_sweep {what:7s} V {(P, D)}{' +' + str(offset) if offset else ''} "
+                  f"R {(d, D)} scale {scale}, {kind}: rel vs f64 kernel {err['kernel']:.3e}, "
+                  f"cuBLAS TF32 {err['library']:.3e}, plain FP32 {err['plain']:.3e}; kernel vs "
+                  f"plain FP32 {to_plain:.3e}", flush=True)
             if not err["kernel"] <= F64_RATIO * err["library"]:
-                raise AssertionError(f"ggn_sweep {what} {(P, d, D)}: f64 error "
-                                     f"{err['kernel']:.3e} > {F64_RATIO} x cuBLAS TF32's "
-                                     f"{err['library']:.3e}")
+                too_far.append(f"{what} {(P, d, D)} {kind}: f64 error {err['kernel']:.3e} > "
+                               f"{F64_RATIO} x cuBLAS TF32's {err['library']:.3e}")
+            if what == "forward" or draw is randn:
+                bias_rows.append((f"{what} {(P, d, D)}, {kind} operands",
+                                  _bias(outs["kernel"], exact), _bias(outs["library"], exact),
+                                  err["library"], exact.numel()))
         if not timed:
             continue
         work = _sweep_work(P, d, D)
         rows["ggn_sweep"] = {
             "max_abs_err": float((fwd["kernel"] - fwd["plain"]).abs().max()),
             "ms": cuda_ms(lambda: ggn_sweep(V, R, scale)),
+            "run_ms": cuda_ms(lambda: ggn_sweep(V, R, scale), min_ms=2.0),
             "plain_ms": cuda_ms(lambda: ggn_sweep_plain(V, R, scale)),
-            "library_ms": cuda_ms(lambda: _library_sweep(V, R, scale)), **work}
+            "library_ms": cuda_ms(lambda: _library_sweep(V, R, scale)),
+            "library_run_ms": cuda_ms(lambda: _library_sweep(V, R, scale), min_ms=2.0), **work}
         out = ggn_sweep(v, R, scale)
         rows["ggn_sweep_backward"] = {
             "max_abs_err": float((bwd["kernel"] - bwd["plain"]).abs().max()),
             "ms": cuda_ms(lambda: torch.autograd.grad(out, v, ct, retain_graph=True)),
+            "run_ms": cuda_ms(lambda: torch.autograd.grad(out, v, ct, retain_graph=True),
+                              min_ms=2.0),
             "plain_ms": cuda_ms(lambda: ggn_sweep_plain(ct, R, scale)),
-            "library_ms": cuda_ms(lambda: _library_sweep(ct, R, scale)), **work}
+            "library_ms": cuda_ms(lambda: _library_sweep(ct, R, scale)),
+            "library_run_ms": cuda_ms(lambda: _library_sweep(ct, R, scale), min_ms=2.0),
+            **work}
         for name, row in rows.items():
-            print(f"  {name:18s} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                  f"library_ms (cuBLAS TF32)={row['library_ms']:.4f} bound_ms="
-                  f"{row['bound_ms']:.4f} ({row['bound_by']}; {row['gflop']:.1f} GFLOP; "
-                  f"two-pass bytes {row['two_pass_bytes_ms']:.4f} ms)", flush=True)
+            print(f"  {name:18s} ms={row['ms']:.4f} (run {row['run_ms']:.4f}) plain_ms="
+                  f"{row['plain_ms']:.4f} library_ms (cuBLAS TF32)={row['library_ms']:.4f} (run "
+                  f"{row['library_run_ms']:.4f}) bound_ms={row['bound_ms']:.4f} "
+                  f"({row['bound_by']}; {row['gflop']:.1f} GFLOP; two-pass bytes "
+                  f"{row['two_pass_bytes_ms']:.4f} ms)", flush=True)
+        del V, R, ct, v, v64, fwd, bwd, ref, dv_64, out
+    _check_bias(bias_rows, SWEEP_BIAS_TOL, "cuBLAS TF32")
+    if too_far:
+        raise AssertionError(f"ggn_sweep further from float64 than allowed: {too_far}")
     return rows
 
 

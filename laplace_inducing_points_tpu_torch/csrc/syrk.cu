@@ -1,76 +1,76 @@
 // SYRK C (d, d) = A A^T for a short-by-long A (d, D), FP32, for Hopper (sm_90a).
 //
 // Replaces _syrk_pallas (laplace_inducing_points_tpu/ops/pallas/syrk.py:71). On the
-// serving path A is the row factor R (1000, 61706) and C is the Gram that eigh
-// factors, so the product must be true FP32 and exactly symmetric.
+// path A is the row factor Rz or R (1000, 61706) and C is the Gram that Cholesky
+// and eigh factor, so the product must be FP32-accurate and exactly symmetric.
 //
-// What bounds it on an H100: 61.7 GFLOP over the lower triangle against 0.25 GB of
-// A, so FP32 compute. The TPU kernel walked a prefetched list of lower-triangle
-// tiles sequentially and carried each tile's sum across k-steps of the grid; here
-// each block owns one lower tile (tile row >= tile column, found from blockIdx.x by
-// the triangular index) and loops over the whole of D itself, in the tile
-// machinery of gemm_f32.cuh. Only ceil(d/64)(ceil(d/64)+1)/2 = 136 blocks exist at
-// d = 1000, about one wave on 132 SMs; splitting D across blocks is later work.
-// The epilogue writes each element with row >= column and its mirror, so C is
-// symmetric bit for bit (JAX's tril(L) + tril(L, -1)^T).
-#include <cmath>
+// What bounds it on an H100: d (d + 1) D = 61.8 GFLOP over the lower triangle
+// against 0.25 GB of A, so operations: 0.37 ms at the 3xTF32 rate (a third of the
+// 495 TFLOP/s TF32 peak), 0.92 ms at the 67 TFLOP/s FFMA peak. The TPU kernel walked
+// a prefetched list of lower-triangle tiles and carried each tile's sum across the
+// k-steps of its grid. Here the NT tile machinery of tiled.cuh (3xTF32 mma.sync,
+// Kahan-folded sums with the truncation loss put back, a cp.async ring) runs in its
+// LOWER mode: only the 64 x 128 (or 32 x 128) tiles that hold an element on or below
+// the diagonal are launched, 72 of them at d = 1000 (18% of their work lies above the
+// diagonal). 72 tiles fill about half of 132 SMs, so D is split across blocks by wave
+// fill (the wrapper's planner: 5 splits at d = 1000, 360 blocks in three waves 91%
+// full), the blocks of one split side by side so that they share A's strips in L2.
+//
+// Exact symmetry: a second pass sums the partials in split order (Kahan) and writes
+// each sum with row >= column to C[r][c] and C[c][r]; without a split the tile's
+// epilogue does the same. The upper half of a tile on the diagonal is never written:
+// there (r, c) and (c, r) are different lanes' sums, whose lo*hi and hi*lo terms are
+// swapped, so they are not bitwise equal. C is symmetric bit for bit (JAX's
+// tril(L) + tril(L, -1)^T).
+#include "tiled.cuh"
 
-#include "gemm_f32.cuh"
+namespace lip_tc {
 
-namespace lip {
-
-__device__ __forceinline__ void lower_tile(int64_t b, int64_t* ti, int64_t* tj) {
-  int64_t i = static_cast<int64_t>((sqrt(8.0 * static_cast<double>(b) + 1.0) - 1.0) * 0.5);
-  while ((i + 1) * (i + 2) / 2 <= b) ++i;
-  while (i * (i + 1) / 2 > b) --i;
-  *ti = i;
-  *tj = b - i * (i + 1) / 2;
-}
-
-__global__ void __launch_bounds__(THREADS)
-syrk_kernel(const float* __restrict__ A, float* __restrict__ C, int64_t d, int64_t K) {
-  __shared__ Tile As;
-  __shared__ Tile Bs;
-  int64_t ti, tj;
-  lower_tile(blockIdx.x, &ti, &tj);
-  const int64_t row0 = ti * BM;
-  const int64_t col0 = tj * BN;
-  Accumulator acc;
-  acc.zero();
-  for (int64_t k0 = 0; k0 < K; k0 += BK) {
-    load_rows(As, A, d, K, row0, k0);
-    load_rows(Bs, A, d, K, col0, k0);
-    __syncthreads();
-    acc.add_strip(As, Bs);
-    __syncthreads();
-  }
-  const int tx = threadIdx.x % TDIM;
-  const int ty = threadIdx.x / TDIM;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t r = row0 + ty + TDIM * i;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int64_t c = col0 + tx + TDIM * j;
-      if (r < d && c <= r) {
-        C[r * d + c] = acc.sum[i][j];
-        C[c * d + r] = acc.sum[i][j];
-      }
-    }
+// C[r][c] = C[c][r] = the sum over s of part[s][r][c] for r >= c, split by split.
+__global__ void mirror_reduce_kernel(const float* __restrict__ part, float* __restrict__ C,
+                                     int64_t d, int64_t splits) {
+  const int64_t count = d * d;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t r = i / d;
+    const int64_t c = i % d;
+    if (c > r) continue;
+    float sum = 0.f, comp = 0.f;
+    for (int64_t k = 0; k < splits; ++k) lip_mm::kahan_add(sum, comp, part[k * count + i]);
+    C[i] = sum - comp;
+    C[c * d + r] = sum - comp;
   }
 }
 
-}  // namespace lip
+cudaError_t syrk_resident_blocks(int64_t& small, int64_t& large) {
+  const cudaError_t err = resident_blocks<1, 4, false, true>(small);
+  return err != cudaSuccess ? err : resident_blocks<2, 4, false, true>(large);
+}
 
-// Plain C entry point, loaded with ctypes. Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() so that a refused launch is seen.
-extern "C" int lip_syrk_f32(const float* A, float* C, int64_t d, int64_t K, void* stream) {
-  const int64_t t = (d + lip::BM - 1) / lip::BM;
-  const int64_t blocks = t * (t + 1) / 2;
-  if (d <= 0 || K <= 0 || blocks > 2147483647LL) {
+}  // namespace lip_tc
+
+// Plain C entry point, loaded with ctypes. C = A A^T over `splits` blocks per lower
+// tile of tile_rows (32 or 64) x 128, through `part` (the (splits, d, d) partials; C
+// itself when splits == 1). Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() so that a refused launch is seen.
+extern "C" int lip_syrk_f32(const float* A, float* part, float* C, int64_t d, int64_t K,
+                            int64_t tile_rows, int64_t splits, void* stream) {
+  using namespace lip_tc;
+  if (d <= 0 || K <= 0 || splits <= 0 ||
+      (tile_rows != SmallTile::BM && tile_rows != LargeTile::BM) || (splits == 1) != (part == C)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  lip::syrk_kernel<<<static_cast<unsigned>(blocks), lip::THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(A, C, d, K);
+  const int64_t tiles = lower_tiles(d, static_cast<int>(tile_rows), TILE_COLS);
+  if (tiles * splits > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>(tiles * splits);
+  const int64_t chunk = ((K + splits - 1) / splits + BK - 1) / BK * BK;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_tiles<false, true>(tile_rows, vec_width(A, A, K, K), blocks, s, A,
+                                              A, part, d, d, K, chunk, splits == 1);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const int64_t threads = 256;
+  const int64_t grid = (d * d + threads - 1) / threads < 4096 ? (d * d + threads - 1) / threads
+                                                               : 4096;
+  mirror_reduce_kernel<<<static_cast<unsigned>(grid), threads, 0, s>>>(part, C, d, splits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -94,6 +94,7 @@ class Geometry(NamedTuple):
     tile_rows: tuple[int, int]   # output rows of a tiled block: small, large
     nt_blocks: tuple[int, int]   # resident tiled NT blocks per SM: small, large tiles
     nn_blocks: tuple[int, int]   # the same for NN
+    syrk_blocks: tuple[int, int]  # the same for the Gram's lower tiles (``csrc/syrk.cu``)
 
 
 class Plan(NamedTuple):
@@ -105,21 +106,27 @@ class Plan(NamedTuple):
     splits: int
 
 
+def wave_splits(tiles: int, depth: int, slots: int, min_depth: int = MIN_SPLIT_DEPTH) -> int:
+    """The fewest parts of a contraction of ``depth`` over ``tiles`` output
+    tiles that keep every wave of ``slots`` resident blocks at least
+    ``WAVE_FILL`` full, none shallower than ``min_depth``."""
+    most = max(1, depth // min_depth)
+    for splits in range(1, most + 1):
+        blocks = tiles * splits
+        if blocks / (slots * math.ceil(blocks / slots)) >= WAVE_FILL:
+            return splits
+    return most
+
+
 def _tiled_plan(m: int, n: int, depth: int, geo: Geometry,
                 blocks_per_sm: tuple[int, int]) -> Plan:
     """Tiles of the small height (when ``m`` fits it) or the large one over
-    ``(m, n)``; the contraction split into the fewest parts that keep every
-    wave at least ``WAVE_FILL`` full, none shallower than ``MIN_SPLIT_DEPTH``."""
+    ``(m, n)``, the contraction split by :func:`wave_splits`."""
     small, large = geo.tile_rows
     rows = small if m <= small else large
     tiles = math.ceil(m / rows) * math.ceil(n / geo.tile_cols)
     slots = blocks_per_sm[rows != small] * geo.sms
-    most = max(1, depth // MIN_SPLIT_DEPTH)
-    for splits in range(1, most + 1):
-        blocks = tiles * splits
-        if blocks / (slots * math.ceil(blocks / slots)) >= WAVE_FILL:
-            return Plan("tiled", rows, splits)
-    return Plan("tiled", rows, most)
+    return Plan("tiled", rows, wave_splits(tiles, depth, slots))
 
 
 def nt_plan(m: int, n: int, D: int, geo: Geometry) -> Plan:
@@ -144,13 +151,13 @@ def nn_plan(m: int, z: int, N: int, geo: Geometry) -> Plan:
 def geometry(device: torch.device) -> Geometry:
     """The planners' :class:`Geometry` of a CUDA ``device``, from the
     kernels' library (built at the first call)."""
-    out = (ctypes.c_int64 * 11)()
+    out = (ctypes.c_int64 * 13)()
     with torch.cuda.device(device):
         raise_on_status(load_library().lip_matmul_geometry(out), "lip_matmul_geometry")
     v = list(out)
     if min(v[7:]) < 1:
-        raise RuntimeError(f"a tiled NT/NN kernel fits no block on an SM of {device}: {v}")
-    return Geometry(*v[:5], tuple(v[5:7]), tuple(v[7:9]), tuple(v[9:11]))
+        raise RuntimeError(f"a tiled kernel fits no block on an SM of {device}: {v}")
+    return Geometry(*v[:5], tuple(v[5:7]), tuple(v[7:9]), tuple(v[9:11]), tuple(v[11:13]))
 
 
 def _partials(plan: Plan, C: torch.Tensor) -> torch.Tensor:

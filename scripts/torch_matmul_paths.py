@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The times behind the path thresholds of the port's FP32 NT and NN
-products, on one CUDA GPU. (``chip_smoke.py`` phase 3 checks every path.)
+products, the Gram's tile shape and the sweep's probe groups and splits, on
+one CUDA GPU. (``chip_smoke.py`` phases 3 and 9 check every path.)
 
 Run from the root of the repository:  python3 scripts/torch_matmul_paths.py
 
@@ -16,6 +17,12 @@ Run from the root of the repository:  python3 scripts/torch_matmul_paths.py
    D = 61,706): NT at m = 1 ... 32 rows, NN at m = 1 ... 32 rows (z = 1000),
    NN at z = 1 ... 64 (m = 1000). CUDA-event time of a run of launches
    (``chip_smoke.cuda_ms``, runs of at least 20 ms).
+4. The Gram (B1) at (1000, 61706): each tile height the kernel has at a range
+   of splits (``launch_syrk`` with an explicit plan), beside its planner's plan
+   and ``torch.mm(A, A.T)``.
+5. The GGN probe sweep (B4) at V (240 | 16, 61706), R (1280, 61706): stage-1
+   splits and probe groups (``launch_sweep`` with an explicit plan), beside its
+   planner's plan and two cuBLAS TF32 products.
 """
 
 from __future__ import annotations
@@ -99,6 +106,51 @@ def sweep() -> None:
             lambda: torch.mm(A, B))
 
 
+def gram() -> None:
+    from laplace_inducing_points_tpu_torch.ops.cuda import matmul as mm
+    from laplace_inducing_points_tpu_torch.ops.cuda import syrk as sy
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    d, D = 1000, 61706
+    geo = mm.geometry(torch.device("cuda", torch.cuda.current_device()))
+    A = torch.randn(d, D, generator=gen, device="cuda")
+    print(f"Gram (1000, 61706), ms per call (planner: {tuple(sy.syrk_plan(d, D, geo))}):")
+    for rows in geo.tile_rows:
+        times = {splits: cuda_ms(lambda: sy.launch_syrk(A, mm.Plan("tiled", rows, splits)),
+                                 min_ms=20.0) for splits in (1, 2, 3, 4, 5, 6, 8)}
+        print(f"  {rows} x {geo.tile_cols} tiles ({sy.lower_tiles(d, rows, geo.tile_cols)}): "
+              + "  ".join(f"splits={k}: {v:.4f}" for k, v in times.items()), flush=True)
+    print(f"  torch.mm(A, A.T): {cuda_ms(lambda: torch.mm(A, A.T), min_ms=20.0):.4f}")
+
+
+def probe_sweep() -> None:
+    from laplace_inducing_points_tpu_torch.ops.cuda import sweep as sw
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    d, D, scale = 1280, 61706, 468.75
+    geo = sw.sweep_geometry(torch.device("cuda", torch.cuda.current_device()))
+    R = torch.randn(d, D, generator=gen, device="cuda")
+
+    def library(V):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return scale * torch.mm(torch.mm(V, R.T), R)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    for P in (240, 16):
+        V = torch.randn(P, D, generator=gen, device="cuda")
+        print(f"sweep V ({P}, 61706), R (1280, 61706), ms per call (planner: "
+              f"{tuple(sw.sweep_plan(P, d, D, geo))}):")
+        for group in geo.groups:
+            if group < P:
+                continue
+            times = {splits: cuda_ms(lambda: sw.launch_sweep(V, R, scale,
+                                                             sw.SweepPlan(group, splits)),
+                                     min_ms=20.0) for splits in (6, 8, 10, 12, 16, 24)}
+            print(f"  group {group}: " + "  ".join(f"splits={k}: {v:.4f}"
+                                                  for k, v in times.items()), flush=True)
+        print(f"  cuBLAS TF32: {cuda_ms(lambda: library(V), min_ms=20.0):.4f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this script measures the GPU")
@@ -116,6 +168,8 @@ def main() -> int:
     print(f"geometry: {mm.geometry(torch.device('cuda', torch.cuda.current_device()))}")
     host_cost()
     sweep()
+    gram()
+    probe_sweep()
     return 0
 
 

@@ -26,8 +26,9 @@ from laplace_inducing_points_tpu_torch.ops.cuda.matmul import (matmul_nn,
                                                                matmul_nn_plain,
                                                                matmul_nt,
                                                                matmul_nt_plain)
-from laplace_inducing_points_tpu_torch.ops.cuda.sweep import (ggn_sweep, ggn_sweep_plain,
-                                                              sweep_splits)
+from laplace_inducing_points_tpu_torch.ops.cuda import sweep as tsweep
+from laplace_inducing_points_tpu_torch.ops.cuda import syrk as tsyrk
+from laplace_inducing_points_tpu_torch.ops.cuda.sweep import ggn_sweep, ggn_sweep_plain
 from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk, syrk_plain
 
 WRAPPERS = {"syrk": syrk, "matmul_nt": matmul_nt, "matmul_nn": matmul_nn}
@@ -233,7 +234,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_library_name_tracks_the_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
-    assert {p.name for p in _build.sources()} >= {"syrk.cu", "matmul.cu", "gemm_f32.cuh",
+    assert {p.name for p in _build.sources()} >= {"syrk.cu", "matmul.cu", "tiled.cuh",
                                                   "ggn_sweep.cu", "matmul_tiled.cu",
                                                   "matmul.cuh"}
 
@@ -241,6 +242,9 @@ def test_library_name_tracks_the_sources():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,shapes", [
     ("syrk", [(77, 301)]),
+    ("syrk", [(130, 3001)]),      # odd D: rows off a 16-byte boundary
+    ("syrk", [(200, 600)]),       # D below one split's depth; d not a multiple of 64
+    ("syrk", [(1000, 5000)]),     # split across blocks
     ("matmul_nt", [(13, 333), (70, 333)]),
     ("matmul_nn", [(13, 45), (45, 1001)]),
 ])
@@ -255,6 +259,8 @@ def test_kernel_matches_plain_on_cuda(name, shapes):
     torch.cuda.synchronize()
     assert WRAPPERS[name].launches == before + 1
     torch.testing.assert_close(got, plain(*args), rtol=1e-5, atol=1e-4)
+    if name == "syrk":
+        assert torch.equal(got, got.T)
 
 
 @pytest.mark.cuda
@@ -285,7 +291,7 @@ def test_backward_matches_plain_on_cuda(name, shapes):
 
 D_LENET = 61706
 H100 = tmm.Geometry(sms=132, row_max=8, rank_max=16, row_cols=512, tile_cols=128,
-                    tile_rows=(32, 64), nt_blocks=(2, 1), nn_blocks=(2, 1))
+                    tile_rows=(32, 64), nt_blocks=(2, 1), nn_blocks=(2, 1), syrk_blocks=(2, 1))
 PATH_SHAPES = {   # name -> (kind, m, n or z, long axis, path, tile rows)
     "slq_rz_v": ("nt", 1, 1000, D_LENET, "row", 0),
     "slq_backward_dA_nt": ("nt", 1, 1000, D_LENET, "row", 0),
@@ -366,10 +372,10 @@ class _FakeLibrary:
 
 @pytest.mark.parametrize("blocks,ok", [((2, 1, 2, 1), True), ((2, 0, 2, 1), False)])
 def test_geometry_reads_the_library_report(monkeypatch, blocks, ok):
-    """``geometry`` turns the library's eleven numbers into a Geometry, and
+    """``geometry`` turns the library's thirteen numbers into a Geometry, and
     refuses a tiled kernel that fits no block on an SM."""
     import contextlib
-    report = (132, 8, 16, 512, 128, 32, 64, *blocks)
+    report = (132, 8, 16, 512, 128, 32, 64, *blocks, 2, 1)
     monkeypatch.setattr(tmm, "load_library", lambda: _FakeLibrary(report))
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     tmm.geometry.cache_clear()
@@ -495,18 +501,102 @@ def test_ggn_sweep_refuses(bad):
         ggn_sweep(torch.randn(4, 6), torch.randn(3, 6), precision="tf32")
 
 
-@pytest.mark.parametrize("P,d,D,sms,splits", [
-    (240, 1280, 61706, 132, 7),       # the Hutch++ range-finder sweep: 80 tiles
-    (16, 1280, 61706, 132, 27),       # the residual sweep: 20 tiles
-    (240, 1280, 3000, 132, 3),        # short D: no block below 1024 of it
-    (2048, 1280, 61706, 132, 1),      # 640 tiles: four per SM without a split
+H100_SWEEP = tsweep.SweepGeometry(sms=132, tile=128, groups=(64, 256), blocks=(1, 1))
+
+
+@pytest.mark.parametrize("P,d,D,group,splits", [
+    (240, 1280, 61706, 256, 12),      # the Hutch++ range-finder sweep: 10 tiles, one wave
+    (16, 1280, 61706, 64, 12),        # the residual sweep: the small group
+    (240, 1280, 3000, 256, 11),       # short D: no block below 256 of it
+    (300, 1280, 61706, 256, 6),       # P > 256: two groups, 20 tiles
+    (2048, 1280, 61706, 256, 3),      # 80 tiles: 240 blocks, two waves 91% full
+    (17, 70, 333, 64, 1),             # a ragged test shape: no split
 ])
-def test_sweep_splits(P, d, D, sms, splits):
-    assert sweep_splits(P, d, D, sms) == splits
+def test_sweep_splits(P, d, D, group, splits):
+    """The sweep planner's probe group and stage-1 split at the H100's
+    geometry."""
+    assert tsweep.sweep_plan(P, d, D, H100_SWEEP) == (group, splits)
+
+
+@pytest.mark.parametrize("P,d", [(240, 1280), (16, 1280), (300, 1000), (64, 200), (65, 3000)])
+def test_sweep_splits_fill_the_waves(P, d):
+    """A split stage-1 plan keeps every wave WAVE_FILL full unless D forbids
+    more splits, and no block contracts less than the sweep's MIN_SPLIT_DEPTH
+    of D."""
+    plan = tsweep.sweep_plan(P, d, D_LENET, H100_SWEEP)
+    assert plan.group == (64 if P <= 64 else 256)
+    tiles = -(-P // plan.group) * -(-d // H100_SWEEP.tile)
+    slots = H100_SWEEP.blocks[plan.group != 64] * H100_SWEEP.sms
+    blocks = tiles * plan.splits
+    assert (blocks / (slots * -(-blocks // slots)) >= tmm.WAVE_FILL
+            or plan.splits == D_LENET // tsweep.MIN_SPLIT_DEPTH)
+    assert D_LENET // plan.splits >= tsweep.MIN_SPLIT_DEPTH
+
+
+@pytest.mark.parametrize("blocks,ok", [((1, 1), True), ((1, 0), False)])
+def test_sweep_geometry_reads_the_library_report(monkeypatch, blocks, ok):
+    import contextlib
+
+    class Library:
+        def lip_sweep_geometry(self, out):
+            for i, v in enumerate((132, 128, 64, 256, *blocks)):
+                out[i] = v
+            return 0
+
+    monkeypatch.setattr(tsweep, "load_library", Library)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    tsweep.sweep_geometry.cache_clear()
+    try:
+        if ok:
+            assert tsweep.sweep_geometry(torch.device("cuda", 0)) == H100_SWEEP
+        else:
+            with pytest.raises(RuntimeError, match="fits no block"):
+                tsweep.sweep_geometry(torch.device("cuda", 0))
+    finally:
+        tsweep.sweep_geometry.cache_clear()
+
+
+# --- B1, the Gram: which tiles and how many splits ---------------------------------
+
+def _lower_tiles_brute(d, rows, cols):
+    """The (row tile, column tile) pairs of a (d, d) Gram holding an element
+    with row >= column."""
+    return [(i, j) for i in range(-(-d // rows)) for j in range(-(-d // cols))
+            if any(r >= c for r in range(i * rows, min(d, (i + 1) * rows))
+                   for c in range(j * cols, min(d, (j + 1) * cols)))]
+
+
+@pytest.mark.parametrize("rows,cols", [(64, 128), (32, 128), (64, 64), (128, 128)])
+@pytest.mark.parametrize("d", [1, 63, 64, 65, 77, 200, 1000, 1280])
+def test_syrk_lower_tiles_match_brute_force(d, rows, cols):
+    assert tsyrk.lower_tiles(d, rows, cols) == len(_lower_tiles_brute(d, rows, cols))
+
+
+@pytest.mark.parametrize("d,D,splits", [
+    (1000, 61706, 5),     # 72 lower tiles: 360 blocks, three waves 91% full
+    (1280, 61706, 6),     # 110 lower tiles (M = 128)
+    (1000, 600, 1),       # D below one split's depth
+    (77, 301, 1),
+    (100, 61706, 57),     # 2 tiles: split as deep as MIN_SPLIT_DEPTH allows
+])
+def test_syrk_plan(d, D, splits):
+    plan = tsyrk.syrk_plan(d, D, H100)
+    assert plan == tmm.Plan("tiled", tsyrk.SYRK_TILE_ROWS, splits)
+
+
+@pytest.mark.parametrize("d", [64, 200, 500, 1000, 1280, 3000])
+def test_syrk_splits_fill_the_waves(d):
+    plan = tsyrk.syrk_plan(d, D_LENET, H100)
+    tiles = tsyrk.lower_tiles(d, plan.tile_rows, H100.tile_cols)
+    slots = H100.syrk_blocks[H100.tile_rows.index(plan.tile_rows)] * H100.sms
+    blocks = tiles * plan.splits
+    assert (blocks / (slots * -(-blocks // slots)) >= tmm.WAVE_FILL
+            or plan.splits == D_LENET // tmm.MIN_SPLIT_DEPTH)
+    assert D_LENET // plan.splits >= tmm.MIN_SPLIT_DEPTH
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,d,D", [(240, 130, 3001), (16, 70, 333), (5, 7, 83)])
+@pytest.mark.parametrize("P,d,D", [(240, 130, 3001), (16, 70, 333), (5, 7, 83), (300, 70, 333)])
 def test_ggn_sweep_matches_plain_on_cuda(P, d, D):
     """TF32 against FP32: relative Frobenius 2e-3, the TF32 rounding (2⁻¹¹
     per operand) over two products."""
