@@ -59,7 +59,26 @@ exits non-zero without printing a result:
     probes through the kernels, through the kernels with the FP32 sweep,
     through the plain versions and in float64, beside the spread of the
     estimator over eight probe draws, each also in float64 for the root
-    mean square of the TF32 path's shift of the KL value.
+    mean square of the TF32 path's shift of the KL value;
+12. the wide MLP's kernel shapes (``configs/scale/mlp_mnist.yml``, D = 235,146,
+    d_z = 1,000, d_x = 1,280, S = 200, and the evidence Gram of a MAP batch,
+    (2560, D)): each kernel against its plain version and float64, timed, the
+    Gram exactly symmetric, the backward passes of the Gram and cross-Gram;
+13. the MLP as shipped: ``cli.train_scale.main full_pipeline`` without
+    ``--alpha_ip`` (the alpha grid search on the card; map.epochs 100 -> 1,
+    ip.epochs 250 -> 3), ``cli.evaluate.main`` on 2 batches and one
+    ``update_alpha`` step on the trained MAP (batch 256); every kernel of the
+    gram path launched, alpha in [10, 1000], every grid NLL, the log evidence
+    and its slope finite; warm Z-step split, peak memory, factor build and
+    serving batch;
+14. ResNet1M's kernel shapes (``configs/scale/resnet1m_cifar10.yml``,
+    D = 1,084,586, d_z = 500, d_x = 320; Rz is 2.17 GB, past 2^31 bytes) as in
+    phase 12, with the backward products of contraction depth 500 and 320;
+15. ResNet1M as shipped (CIFAR-10 surrogate, augmentation on for the MAP,
+    alpha_ip 10 as the config's header prescribes, example_block 4,
+    sample_block 25; map.epochs 75 -> 10, ip.epochs 100 -> 3), then
+    ``cli.evaluate.main`` on 2 test batches, checked and timed as phase 13;
+16. phase 8's gradient agreement on ResNet1M's trained MAP and Z.
 
 The line before the last is the card's ``nvidia-smi`` line; the one before
 it is the per-kernel JSON; the last line is ``{"ok": true, "device": ...}``.
@@ -742,39 +761,61 @@ GRAM_PATH_UNUSED = ("matmul_nn_backward", "ggn_sweep", "ggn_sweep_backward",
                     "matmul_nt.row", "matmul_nn.row", "matmul_nn.rank")
 
 
-def _train_config(workdir: Path) -> str:
-    """lenet5_mnist.yml with only the step counts cut: map.epochs 150 -> 1
-    (31 steps on the synthetic surrogate), ip.epochs 250 -> 5."""
-    text = Path(CONFIG).read_text()
-    for old, new in (("    epochs: 150\n", "    epochs: 1\n"),
-                     ("    epochs: 250\n", "    epochs: 5\n")):
+def _cut_config(workdir: Path, config: str, cuts: dict, name: str) -> str:
+    """A copy of ``config`` with the lines of ``cuts`` (old -> new epochs)
+    replaced, each of which it must hold once, written to ``workdir/name``."""
+    text = Path(config).read_text()
+    for old, new in cuts.items():
+        old, new = f"    epochs: {old}\n", f"    epochs: {new}\n"
         if text.count(old) != 1:
-            raise AssertionError(f"{CONFIG} has no single line {old!r}")
+            raise AssertionError(f"{config} has no single line {old!r}")
         text = text.replace(old, new)
-    path = workdir / "lenet5_mnist_steps_cut.yml"
+    path = workdir / name
     path.write_text(text)
     return str(path)
 
 
-def _warm_z_step(state, Z, X, alpha, beta, gamma, reps: int = 3) -> dict:
+def _train_config(workdir: Path) -> str:
+    """lenet5_mnist.yml with only the step counts cut: map.epochs 150 -> 1
+    (31 steps on the synthetic surrogate), ip.epochs 250 -> 5."""
+    return _cut_config(workdir, CONFIG, {150: 1, 250: 5}, "lenet5_mnist_steps_cut.yml")
+
+
+def _warm_z_step(state, Z, X, alpha, beta, gamma, reps: int = 3,
+                 example_block=None) -> dict:
     """Host seconds of the parts of a warm Z step (device synchronised),
-    median of ``reps``."""
+    median of ``reps``, the row builds and pullback in blocks of
+    ``example_block`` examples; and the peak device memory of the row build
+    and of the whole step above what was allocated before it
+    (``torch.cuda.max_memory_allocated``, GiB), and that base."""
     from laplace_inducing_points_tpu_torch.core import operators as ops
     from laplace_inducing_points_tpu_torch.training.inducing import (_kl_core,
                                                                      grams_from_rows)
     parts = {"rows": [], "gram_forward": [], "gram_backward": [], "pullback": []}
     for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         with torch.no_grad():
-            (Rz, Rx), rows_s = _host_s(lambda: (ops.dense_wt(state, Z),
-                                                ops.dense_wt(state, X)))
+            (Rz, Rx), rows_s = _host_s(lambda: (
+                ops.dense_wt(state, Z, example_block=example_block),
+                ops.dense_wt(state, X, example_block=example_block)))
+        rows_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
         Rz.requires_grad_()
         loss, fwd_s = _host_s(lambda: _kl_core(*grams_from_rows(Rz, Rx), alpha, beta,
                                                gamma))
         (ct,), bwd_s = _host_s(lambda: torch.autograd.grad(loss, Rz))
-        _, pull_s = _host_s(lambda: ops.dense_wt_pullback(state, Z, ct))
+        del Rz, Rx, loss
+        _, pull_s = _host_s(lambda: ops.dense_wt_pullback(state, Z, ct,
+                                                           example_block=example_block))
+        del ct
         for key, val in zip(parts, (rows_s, fwd_s, bwd_s, pull_s)):
             parts[key].append(val)
-    return {key: statistics.median(vals[1:]) for key, vals in parts.items()}
+    split = {key: statistics.median(vals[1:]) for key, vals in parts.items()}
+    split["rows_peak_gib"] = rows_peak
+    split["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    split["base_gib"] = base / 2**30
+    return split
 
 
 def phase_training(workdir: Path, backward_rows: dict) -> dict:
@@ -851,14 +892,15 @@ def phase_training(workdir: Path, backward_rows: dict) -> dict:
             "data_dir": dirs["data"]}
 
 
-def phase_gradient_agreement(train: dict) -> None:
+def phase_gradient_agreement(train: dict, phase: str = "phase 8") -> dict:
     """One Z step's KL value and dL/dZ through the kernels, through the plain
     versions and through a float64 evaluation of the Gram algebra, from the
-    same rows; each ∂L/∂Rz is pulled back through the same f32 row build. The
+    same rows (built and pulled back in blocks of ``train["example_block"]``
+    examples); each ∂L/∂Rz is pulled back through the same f32 row build. The
     kernel path must be no further from float64 than F64_RATIO times the plain
     path, for the value and for dL/dZ, and its KL value KL_CLOSER times closer
     to float64 than the plain path's."""
-    print("== phase 8: gradient agreement of one Z step", flush=True)
+    print(f"== {phase}: gradient agreement of one Z step", flush=True)
     from laplace_inducing_points_tpu_torch.core import operators as ops
     from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nt_plain
     from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk_plain
@@ -866,8 +908,10 @@ def phase_gradient_agreement(train: dict) -> None:
         _kl_core, kl_rows_value_and_grad)
     state, Z, X = train["state"], train["Z"], train["X"]
     consts = (train["alpha"], train["beta"], train["gamma"])
+    block = train.get("example_block")
     with torch.no_grad():
-        Rz, Rx = ops.dense_wt(state, Z), ops.dense_wt(state, X)
+        Rz = ops.dense_wt(state, Z, example_block=block)
+        Rx = ops.dense_wt(state, X, example_block=block)
 
     def plain_value_and_grad(dtype):
         rz = Rz.detach().to(dtype).requires_grad_()
@@ -879,7 +923,9 @@ def phase_gradient_agreement(train: dict) -> None:
     out = {"kernel": kl_rows_value_and_grad(Rz, Rx, *consts),
            "plain": plain_value_and_grad(torch.float32),
            "float64": plain_value_and_grad(torch.float64)}
-    dZ = {key: ops.dense_wt_pullback(state, Z, ct.float()) for key, (_, ct) in out.items()}
+    del Rz, Rx
+    dZ = {key: ops.dense_wt_pullback(state, Z, ct.float(), example_block=block)
+          for key, (_, ct) in out.items()}
     value = {key: float(v) for key, (v, _) in out.items()}
     torch.cuda.synchronize()
     val_err = {key: abs(value[key] - value["float64"]) / abs(value["float64"])
@@ -905,6 +951,7 @@ def phase_gradient_agreement(train: dict) -> None:
         raise AssertionError(f"KL value: kernel path {val_err['kernel']:.3e} from float64, "
                              f"not {KL_CLOSER} x closer than the plain path's "
                              f"{val_err['plain']:.3e}")
+    return {"value_err": val_err, "grad_err": grad_err}
 
 
 @contextlib.contextmanager
@@ -1027,12 +1074,7 @@ def phase_sweep() -> dict:
 
 def _stochastic_config(workdir: Path) -> str:
     """lenet5_mnist.yml with only ip.epochs cut, 250 -> 3."""
-    text = Path(CONFIG).read_text()
-    if text.count("    epochs: 250\n") != 1:
-        raise AssertionError(f"{CONFIG} has no single line 'epochs: 250'")
-    path = workdir / "lenet5_mnist_z_steps_cut.yml"
-    path.write_text(text.replace("    epochs: 250\n", "    epochs: 3\n"))
-    return str(path)
+    return _cut_config(workdir, CONFIG, {250: 3}, "lenet5_mnist_z_steps_cut.yml")
 
 
 def _warm_stochastic_step(state, Z, X, alpha, beta, gamma, probes, slq_samples,
@@ -1227,6 +1269,247 @@ def phase_estimator_agreement(train: dict, ip: dict) -> None:
                              f"float64, not below 0.1 x the spread {grad_spread:.3e}")
 
 
+# The gram path on the scale configs beyond LeNet5: (label, config, dataset,
+# the config's epochs lines cut (map, ip), the alpha of the Z training: None
+# for the grid search, as shipped; the flagship's header prescribes 10).
+# ResNet1M keeps 10 MAP epochs (310 steps): after one (31 steps) its BatchNorm
+# running statistics are 27% of the way from their initial values (momentum
+# 0.99), the eval-mode network's test NLL is ~80, softmax probabilities
+# underflow to 0 and d√p/dp = inf makes dL/dZ NaN at the first Z step, in
+# the reference's algebra as in the port's
+SCALE_PATHS = {
+    "mlp_mnist": ("configs/scale/mlp_mnist.yml", "mnist", {100: 1, 250: 3}, None),
+    "resnet1m_cifar10": ("configs/scale/resnet1m_cifar10.yml", "cifar10", {75: 10, 100: 3},
+                         10.0),
+}
+# kernels of these paths (with B2's and B3's tiled path), each listed in the
+# kernels JSON as "<kernel>@<label>"
+SCALE_KERNELS = ("syrk", "matmul_nt", "matmul_nn", "syrk_backward", "matmul_nt_backward")
+
+
+def _scale_kernels(label: str, d_z: int, d_x: int, D: int, extra: tuple = ()) -> dict:
+    """Each kernel of a scale path at that path's shapes (the Gram of Z's rows,
+    the cross-Gram, the serving products at S = 200, and ``extra``) against
+    its plain version and float64 by phase 3's rules (its bias too), timed;
+    the Gram exactly symmetric; the backward passes of the Gram and the
+    cross-Gram against plain and float64 autograd, timed with their library
+    products. Returns the timed rows by JSON name."""
+    from laplace_inducing_points_tpu_torch.ops.cuda.matmul import (matmul_nn,
+                                                                   matmul_nn_plain,
+                                                                   matmul_nt,
+                                                                   matmul_nt_plain)
+    from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk, syrk_plain
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    S = 200
+    Rz, Rx = randn(d_z, D), randn(d_x, D)
+    rows, checked = {}, []
+    print(f"  {label}: d_z={d_z}, d_x={d_x}, D={D} (Rz {4 * d_z * D / 1e9:.2f} GB)", flush=True)
+    rows["syrk"] = _check_kernel("syrk", syrk, syrk_plain, (Rz,), timed=True)
+    C = syrk(Rz)
+    if not torch.equal(C, C.T):
+        raise AssertionError(f"syrk {(d_z, D)}: not exactly symmetric")
+    print(f"  syrk {(d_z, D)} exactly symmetric: True")
+    del C
+    rows["matmul_nt.cross_gram"] = _check_path("matmul_nt", "tiled", matmul_nt,
+                                               matmul_nt_plain, (Rx, Rz), True)
+    rows["matmul_nt"] = _check_path("matmul_nt", "tiled", matmul_nt, matmul_nt_plain,
+                                    (randn(S, D), Rz), True)
+    rows["matmul_nn"] = _check_path("matmul_nn", "tiled", matmul_nn, matmul_nn_plain,
+                                    (randn(S, d_z), Rz), True)
+    for name, inputs in extra:
+        kernel, plain = {"syrk": (syrk, syrk_plain), "matmul_nt": (matmul_nt, matmul_nt_plain),
+                         "matmul_nn": (matmul_nn, matmul_nn_plain)}[name]
+        inputs = tuple(f(gen) for f in inputs)
+        checked.append((f"{name} {' x '.join(str(tuple(t.shape)) for t in inputs)}",
+                        _check_kernel(name, kernel, plain, inputs, timed=True)))
+        del inputs
+    checked += [(f"{name} at {label}", rows[name])
+                for name in ("syrk", "matmul_nt.cross_gram", "matmul_nt", "matmul_nn")]
+    _check_bias([(key, row["bias"], row["plain_bias"], row["plain_rel_vs_f64"], row["outputs"])
+                 for key, row in checked])
+    ct_zz, ct_xz = randn(d_z, d_z), randn(d_x, d_z)
+    sym_zz = ct_zz + ct_zz.T
+    rows["syrk_backward"] = _check_backward(
+        "syrk_backward", syrk, syrk_plain, (Rz,), (True,), ct_zz, timed=True,
+        library=lambda: torch.mm(sym_zz, Rz))
+    rows["syrk_backward"].update(bound(2 * d_z * d_z * D, 4 * (2 * d_z * D + d_z * d_z),
+                                       _peak(rows["syrk_backward"]["paths"])))
+    rows["matmul_nt_backward"] = _check_backward(
+        "matmul_nt_backward", matmul_nt, matmul_nt_plain, (Rx, Rz), (False, True), ct_xz,
+        timed=True, library=lambda: torch.mm(ct_xz.T, Rx))
+    rows["matmul_nt_backward"].update(bound(2 * d_z * d_x * D,
+                                            4 * (d_x * D + d_x * d_z + d_z * D),
+                                            _peak(rows["matmul_nt_backward"]["paths"])))
+    for name in ("syrk_backward", "matmul_nt_backward"):
+        row = rows[name]
+        print(f"  {name:22s} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; FP32 FFMA "
+              f"{row['bound_fp32_ms']:.4f}); paths {sorted(row['paths'])}", flush=True)
+    del Rz, Rx, ct_zz, ct_xz, sym_zz
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _scale_state(model_cfg: dict, dataset: str, map_dir: str):
+    """The trained MAP of a scale path, weights and statistics, on the card."""
+    from laplace_inducing_points_tpu_torch.data.scale import DATASET_SHAPES
+    from laplace_inducing_points_tpu_torch.models.registry import get_model
+    from laplace_inducing_points_tpu_torch.models.state import ModelState
+    from laplace_inducing_points_tpu_torch.utils.checkpoint import (load_batch_stats,
+                                                                    load_params)
+    flat, _, _ = load_params(map_dir, f"map_{dataset}")
+    stats = load_batch_stats(map_dir, f"map_{dataset}")
+    model = get_model(model_cfg, DATASET_SHAPES[dataset][0]).cuda()
+    return ModelState(model, flat.cuda(), model_cfg["type"],
+                      {key: t.cuda() for key, t in stats.items()})
+
+
+def phase_scale_path(workdir: Path, label: str, phase: str) -> dict:
+    """A scale config through the port's entry points at full width, only the
+    step counts cut: ``cli.train_scale.main full_pipeline`` (alpha from the
+    grid search where the config ships none) and ``cli.evaluate.main`` on 2
+    test batches; the MLP also takes one ``update_alpha`` step on a batch of
+    256 of its trained MAP. The launch counts of the whole run are read
+    together; every kernel of the gram path must have been launched."""
+    config, dataset, cuts, alpha_ip = SCALE_PATHS[label]
+    print(f"== {phase}: {label} (cli.train_scale.main full_pipeline, then "
+          f"cli.evaluate.main)", flush=True)
+    from laplace_inducing_points_tpu_torch.cli import evaluate, train_scale
+    from laplace_inducing_points_tpu_torch.data.scale import get_dataloaders
+    from laplace_inducing_points_tpu_torch.training.alpha import (make_alpha_optimizer,
+                                                                  update_alpha)
+    from laplace_inducing_points_tpu_torch.utils.checkpoint import load_array
+    from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
+    cut = _cut_config(workdir, config, cuts, f"{label}_steps_cut.yml")
+    cfg = load_experiment_config(cut)
+    opt, ip, sampling = cfg["optimization"], cfg["optimization"]["ip"], cfg["sampling"]
+    (map_from, map_to), (ip_from, ip_to) = cuts.items()
+    print(f"config {config} with step counts cut: map.epochs {map_from} -> {map_to}, "
+          f"ip.epochs {ip_from} -> {ip_to}; as shipped: model {cfg['model']['name']}, "
+          f"M={ip['m']}, ip.batch_size={ip['batch_size']}, map.batch_size="
+          f"{opt['map']['batch_size']}, S={ip['mc_samples']}, example_block="
+          f"{ip['example_block']}, sample_block={sampling['sample_block']}, alpha "
+          f"{'from the grid search' if alpha_ip is None else alpha_ip}")
+    dirs = {key: str(workdir / f"{label}_{key}") for key in ("map", "ind", "data")}
+    common = ["--dataset", dataset, "--config", cut, "--device", "cuda",
+              "--ckpt_map", dirs["map"], "--ckpt_induc", dirs["ind"], "--data_dir",
+              dirs["data"]]
+    alpha_args = [] if alpha_ip is None else ["--alpha_ip", str(alpha_ip)]
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    result = train_scale.main(["full_pipeline", *alpha_args, "--train_log",
+                               str(workdir / f"{label}_log.jsonl"), *common])
+    run_peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    records = evaluate.main(["--scalable", "--predictive", "weight", "--iters", "1",
+                             "--max_batches", "2", *common])
+    state = _scale_state(cfg["model"], dataset, dirs["map"])
+    evidence = None
+    if alpha_ip is None:
+        train_loader, _, _ = get_dataloaders(dataset, opt["map"]["batch_size"], aug=False,
+                                             root=dirs["data"])
+        x = torch.as_tensor(next(iter(train_loader))[0]).cuda()
+        log_alpha = torch.tensor(math.log(opt["alpha"]), device="cuda", requires_grad=True)
+        (value, slope), evidence_s = _host_s(lambda: update_alpha(
+            log_alpha, make_alpha_optimizer(log_alpha), x, state, opt["full_set_size"],
+            ip["example_block"]))
+        evidence = {"value": float(value), "slope": float(slope), "seconds": evidence_s,
+                    "alpha_after": math.exp(log_alpha.item()), "batch": x.shape[0]}
+    launches = _read_counts()
+    print(f"launches during the {label} path: {json.dumps(launches)}")
+    for name, n in launches.items():
+        if n <= 0 and name not in GRAM_PATH_UNUSED:
+            raise AssertionError(f"{name} was not launched by the {label} path")
+    if "inducing" not in result:
+        raise AssertionError(f"{label}: the Z training diverged at its first step")
+    map_stats, ind, alpha = result["map"], result["inducing"], result["alpha"]
+    losses = [r["loss"] for r in ind["rows"]]
+    if not (math.isfinite(map_stats["loss_first"]) and math.isfinite(map_stats["loss_last"])):
+        raise AssertionError(f"MAP loss not finite: {map_stats}")
+    if len(losses) != ip["epochs"] or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"Z-step losses: {losses}")
+    if not (result["Z_moved"] > 0.0):
+        raise AssertionError("Z did not move")
+    for key in ("nll", "acc", "brier", "ece"):
+        if not math.isfinite(records[0][key]):
+            raise AssertionError(f"evaluation of the trained Z: {key}={records[0][key]}")
+    print(f"alpha_ip = {alpha['alpha_ip']:.6g} ({alpha['alpha_src']})")
+    if alpha_ip is None:
+        for a, nll in alpha["grid"]:
+            print(f"  grid point alpha={a:.6g}: validation NLL {nll:.6f}")
+        nlls = [nll for _, nll in alpha["grid"]]
+        if len(nlls) != 11 or not all(math.isfinite(v) for v in nlls):
+            raise AssertionError(f"grid-search NLLs: {alpha['grid']}")
+        if not (alpha["alpha_src"] == "grid" and 10.0 <= alpha["alpha_ip"] <= 1000.0):
+            raise AssertionError(f"selected alpha {alpha}")
+        print(f"update_alpha on the trained MAP, batch {evidence['batch']} (B1 at "
+              f"({evidence['batch'] * 10}, {state.spec.num_params})): log evidence "
+              f"{evidence['value']:.8g}, d/dlog alpha {evidence['slope']:.6g}, alpha "
+              f"{opt['alpha']} -> {evidence['alpha_after']:.6g}, {evidence['seconds']:.3f} s")
+        if not (math.isfinite(evidence["value"]) and math.isfinite(evidence["slope"])):
+            raise AssertionError(f"log evidence not finite: {evidence}")
+    print(f"MAP: {map_stats['steps']} steps, first {map_stats['first_step_s']:.4f} s, "
+          f"warm median {map_stats['s_per_step']:.5f} s per step; loss "
+          f"{map_stats['loss_first']:.4f} -> {map_stats['loss_last']:.4f}")
+    print(f"Z: {ind['steps']} steps, first {ind['first_step_seconds']:.3f} s, warm median "
+          f"{ind['seconds_per_step']:.4f} s per step; losses "
+          f"{', '.join(f'{v:.8g}' for v in losses)}; max |Z - Z0| = {result['Z_moved']:.4g}; "
+          f"peak memory of the training run {run_peak_gib:.2f} GiB above the "
+          f"{base / 2**30:.2f} GiB allocated before it")
+    print(f"evaluation: factor build {records[0]['factor_s']:.3f} s, {records[0]['batches']} "
+          f"batches in {records[0]['wallclock_s']:.3f} s ({records[0]['per_batch_s']:.3f} s "
+          f"per batch); nll={records[0]['nll']:.5f} acc={records[0]['acc']:.5f} "
+          f"brier={records[0]['brier']:.5f} ece={records[0]['ece']:.5f}")
+    Z = torch.as_tensor(load_array(dirs["ind"], f"ind_{dataset}", ip["epochs"])).cuda()
+    ip_loader, test_loader, _ = get_dataloaders(dataset, ip["batch_size"], aug=False,
+                                                root=dirs["data"])
+    X = torch.as_tensor(next(iter(ip_loader))[0]).cuda()
+    N = opt["full_set_size"]
+    return {"launches": launches, "state": state, "Z": Z, "X": X,
+            "alpha": alpha["alpha_ip"], "beta": N / Z.shape[0], "gamma": N / X.shape[0],
+            "example_block": ip["example_block"], "sample_block": sampling["sample_block"],
+            "S": ip["mc_samples"], "N": N, "data_dir": dirs["data"], "dataset": dataset,
+            "test_batch": opt["map"]["batch_size"], "map_stats": map_stats, "ind": ind}
+
+
+def phase_scale_timings(train: dict, label: str) -> None:
+    """Warm timings of a scale path on its trained MAP and Z: the split and
+    peak memory of a Z step (rows and pullback in example blocks), the factor
+    build and one serving batch (B = the MAP batch, S as shipped, pushed
+    forward in sample blocks)."""
+    from laplace_inducing_points_tpu_torch.data.scale import get_dataloaders
+    from laplace_inducing_points_tpu_torch.inference.lla import ScalableLLAPredictor
+    state, Z, X = train["state"], train["Z"], train["X"]
+    split = _warm_z_step(state, Z, X, train["alpha"], train["beta"], train["gamma"],
+                         reps=2, example_block=train["example_block"])
+    print(f"{label} warm Z step split (host clock, synchronised, median of 2): rows "
+          f"{split['rows']:.4f} s, Gram algebra forward incl. Cholesky "
+          f"{split['gram_forward']:.4f} s, its backward {split['gram_backward']:.4f} s, "
+          f"row pullback {split['pullback']:.4f} s; peak memory above the "
+          f"{split['base_gib']:.2f} GiB allocated before: row build "
+          f"{split['rows_peak_gib']:.2f} GiB, whole step {split['peak_gib']:.2f} GiB")
+    _, test_loader, _ = get_dataloaders(train["dataset"], train["test_batch"], aug=False,
+                                        root=train["data_dir"])
+    x = torch.as_tensor(next(iter(test_loader))[0]).cuda()
+    with torch.no_grad():
+        builds = [_host_s(lambda: ScalableLLAPredictor(
+            state, Z, full_set_size=train["N"], example_block=train["example_block"],
+            range_clip_min=1.0, sample_block=train["sample_block"])) for _ in range(2)]
+        pred = builds[-1][0]
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+        batches = [_host_s(lambda: pred.logit_samples(x, train["alpha"], gen, train["S"]))
+                   for _ in range(3)]
+    out = batches[-1][0]
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: serving logit samples not finite")
+    print(f"{label} factor build, warm: {builds[-1][1]:.3f} s (first here "
+          f"{builds[0][1]:.3f} s); one serving batch {tuple(out.shape)}, warm: "
+          f"{statistics.median(s for _, s in batches[1:]):.4f} s (first {batches[0][1]:.4f} s)")
+
+
 def main() -> int:
     smi = phase_environment()
     phase_build()
@@ -1240,6 +1523,29 @@ def main() -> int:
         sweep_rows = phase_sweep()
         stochastic = phase_stochastic(Path(tmp), train)
         phase_estimator_agreement(train, stochastic["ip"])
+        print("== phase 12: the kernels at the wide MLP's shapes (mlp_mnist.yml)",
+              flush=True)
+        scale_rows = {"mlp_mnist": _scale_kernels(
+            "mlp_mnist", 1000, 1280, 235146,
+            extra=(("syrk", (lambda g: torch.randn(2560, 235146, generator=g,
+                                                   device="cuda"),)),))}
+        scale = {"mlp_mnist": phase_scale_path(Path(tmp), "mlp_mnist", "phase 13")}
+        phase_scale_timings(scale["mlp_mnist"], "mlp_mnist")
+        del scale["mlp_mnist"]["state"], scale["mlp_mnist"]["Z"], scale["mlp_mnist"]["X"]
+        print("== phase 14: the kernels at ResNet1M's shapes (resnet1m_cifar10.yml)",
+              flush=True)
+        scale_rows["resnet1m_cifar10"] = _scale_kernels(
+            "resnet1m_cifar10", 500, 320, 1084586,
+            extra=(("matmul_nn", (lambda g: torch.randn(500, 500, generator=g, device="cuda"),
+                                  lambda g: torch.randn(500, 1084586, generator=g,
+                                                        device="cuda"))),
+                   ("matmul_nn", (lambda g: torch.randn(500, 320, generator=g, device="cuda"),
+                                  lambda g: torch.randn(320, 1084586, generator=g,
+                                                        device="cuda")))))
+        resnet = phase_scale_path(Path(tmp), "resnet1m_cifar10", "phase 15")
+        phase_scale_timings(resnet, "resnet1m_cifar10")
+        phase_gradient_agreement(resnet, "phase 16")
+        scale["resnet1m_cifar10"] = resnet
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
               "replaces": KERNELS[name][1], "launches": launches[name],
@@ -1269,6 +1575,16 @@ def main() -> int:
                "launches": stochastic["launches"][name],
                **{k: kernel_rows[name][k] for k in keys}}
               for name, (kernel, path, _) in PATHS.items()]
+    # the scale paths (phases 12-16): each kernel of the gram path timed at the
+    # path's shapes, launches from that path's run
+    for label, rows in scale_rows.items():
+        table += [{"name": f"{name}@{label}", "route": "cuda",
+                   "source": (KERNELS[name][0] if name in KERNELS else
+                              "laplace_inducing_points_tpu_torch/csrc/matmul_tiled.cu"),
+                   "replaces": KERNELS[name][1] if name in KERNELS else BACKWARD[name],
+                   "launches": scale[label]["launches"][name],
+                   **{k: rows[name][k] for k in keys}}
+                  for name in SCALE_KERNELS]
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

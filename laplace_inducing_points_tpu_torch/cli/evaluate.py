@@ -32,6 +32,7 @@ from laplace_inducing_points_tpu_torch.inference.lla import ScalableLLAPredictor
 from laplace_inducing_points_tpu_torch.models.registry import get_model
 from laplace_inducing_points_tpu_torch.models.state import ModelState
 from laplace_inducing_points_tpu_torch.utils.checkpoint import (load_array,
+                                                                load_batch_stats,
                                                                 load_params,
                                                                 load_run_meta)
 from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
@@ -135,7 +136,9 @@ def main(argv=None) -> list[dict]:
     if logvar is not None:
         with torch.no_grad():
             model.logvar.fill_(logvar)
-    state = ModelState(model, flat.to(device), model_kind=model_cfg["type"])
+    stats = load_batch_stats(args.ckpt_map, f"map_{args.dataset}")
+    state = ModelState(model, flat.to(device), model_kind=model_cfg["type"],
+                       batch_stats={key: t.to(device) for key, t in stats.items()})
     if spec != state.spec:
         raise ValueError(f"MAP file layout {spec.names} does not match the "
                          f"model's {state.spec.names}")

@@ -1,26 +1,32 @@
 """Scale-experiment trainer: MAP weights, then inducing points Z on the exact
 Gram KL or its stochastic (Hutch++ + SLQ) estimate.
 
-Counterpart of ``laplace_inducing_points_tpu/cli/train_scale.py:83-268`` for
-the LeNet5 slice: the three modes, MAP with the cosine schedule, Z training
-with the ``gram`` or ``stochastic`` objective at ``--alpha_ip`` (the
+Counterpart of ``laplace_inducing_points_tpu/cli/train_scale.py:83-268``: the
+three modes, MAP with the cosine schedule (BatchNorm statistics kept with the
+weights), the prior precision of the Z training from ``--alpha_ip``, from
+evidence maximization during the MAP (``--alpha_mode evidence``,
+``training.alpha.train_map_then_alpha``) or from the validation-NLL grid
+search on the initial Z (``training.grid_search.grid_search_alpha``: log₁₀ α
+from 1 to 3, 8 coarse points and one refinement, on the config's
+predictive), Z training with the ``gram`` or ``stochastic`` objective (the
 stochastic one with the config's ``ip.st_samples``, ``ip.slq_samples``,
 ``ip.slq_num_matvecs`` and probes seeded from ``ip.seed``), the
 ``--train_log`` rows and summary, and the checkpoints that ``cli.evaluate``
-reads (the MAP weights as ``{ckpt_map}/map_{dataset}.pt``, Z as
-``{ckpt_induc}/ind_{dataset}_{epochs}.npz`` with the run's meta beside it).
-The α grid search, evidence α, ``--continue``, ``--profile``, the ``dense``,
-``gram_chunked`` and ``stochastic_matfree`` objectives and a mesh are not
-ported yet and raise (ROADMAP, Queue A).
+reads (the MAP weights and statistics as ``{ckpt_map}/map_{dataset}.pt``, Z
+as ``{ckpt_induc}/ind_{dataset}_{epochs}.npz`` with the run's meta beside
+it: the α and where it came from, ``cli``, ``evidence`` or ``grid``).
+``--continue``, ``--profile``, the ``dense``, ``gram_chunked`` and
+``stochastic_matfree`` objectives and a mesh are not ported yet and raise
+(ROADMAP, Queue A).
 
 The MAP weights start from a seeded numpy lecun-normal init in the JAX layout
-(``core.params.lecun_normal_params`` of ``model.seed``): the Flax init stream
-cannot be reproduced. Shuffles use numpy's generator.
+(``core.params.lecun_normal_params`` of ``model.seed``; BatchNorm scale one,
+statistics mean 0 and var 1): the Flax init stream cannot be reproduced.
+Shuffles use numpy's generator.
 
 Usage:
     python -m laplace_inducing_points_tpu_torch.cli.train_scale full_pipeline \
-        --dataset mnist --config configs/scale/lenet5_mnist.yml \
-        --alpha_ip 0.005 --device cuda
+        --dataset mnist --config configs/scale/mlp_mnist.yml --device cuda
 """
 
 from __future__ import annotations
@@ -38,11 +44,13 @@ from laplace_inducing_points_tpu_torch.data.loader import cycling_batches
 from laplace_inducing_points_tpu_torch.data.scale import DATASET_SHAPES, get_dataloaders
 from laplace_inducing_points_tpu_torch.models.registry import get_model
 from laplace_inducing_points_tpu_torch.models.state import ModelState
+from laplace_inducing_points_tpu_torch.training.alpha import train_map_then_alpha
+from laplace_inducing_points_tpu_torch.training.grid_search import grid_search_alpha
 from laplace_inducing_points_tpu_torch.training.inducing import (OBJECTIVES,
                                                                  train_inducing_points)
 from laplace_inducing_points_tpu_torch.training.map import cosine_lr, train_map
-from laplace_inducing_points_tpu_torch.utils.checkpoint import (load_params, save_array,
-                                                                save_params,
+from laplace_inducing_points_tpu_torch.utils.checkpoint import (load_batch_stats, load_params,
+                                                                save_array, save_params,
                                                                 save_run_meta)
 from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
 from laplace_inducing_points_tpu_torch.utils.device import resolve_device, set_f32_policy
@@ -59,10 +67,12 @@ def build_parser():
     p.add_argument("--continue", dest="resume", action="store_true",
                    help="not ported (ROADMAP, Queue A)")
     p.add_argument("--alpha_ip", type=float, default=None,
-                   help="prior precision of the Z training; required here (the "
-                        "alpha grid search is not ported, ROADMAP, Queue A)")
+                   help="prior precision of the Z training; default: the "
+                        "evidence alpha (--alpha_mode evidence) or the grid search")
     p.add_argument("--alpha_mode", default="grid", choices=["grid", "evidence"],
-                   help="'evidence' is not ported (ROADMAP, Queue A)")
+                   help="grid = validation-NLL grid search; evidence = "
+                        "interleave MAP with gradient ascent on the log "
+                        "marginal likelihood (train_map_then_alpha)")
     p.add_argument("--objective", default=None,
                    choices=["dense", "gram", "gram_chunked", "stochastic",
                             "stochastic_matfree"],
@@ -77,6 +87,10 @@ def build_parser():
                         "inducing phase plus one kl_training_run summary row")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="not ported (ROADMAP, Queue A)")
+    p.add_argument("--range_clip", type=float, default=1.0,
+                   help="clip min for (alpha + beta*lam) inside the posterior "
+                        "inverse sqrt during the alpha grid search; must match "
+                        "cli.evaluate's (1.0 in both); <=0 disables")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default; raises without a GPU) or 'cpu'")
     return p
@@ -85,7 +99,6 @@ def build_parser():
 def _refuse_unported(args) -> None:
     unported = {
         "--continue": args.resume,
-        "--alpha_mode evidence": args.alpha_mode == "evidence",
         "--profile": args.profile is not None,
         "--mesh": args.mesh,
         f"--objective {args.objective}": args.objective not in PORTED_OBJECTIVES,
@@ -93,9 +106,6 @@ def _refuse_unported(args) -> None:
     for flag, asked in unported.items():
         if asked:
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP, Queue A)")
-    if args.mode != "train_map" and args.alpha_ip is None:
-        raise NotImplementedError("the alpha grid search is not ported yet "
-                                  "(ROADMAP, Queue A): pass --alpha_ip")
 
 
 def _sync(device: torch.device) -> None:
@@ -125,7 +135,8 @@ class _StepClock:
                 "s_per_step": statistics.median(warm)}
 
 
-def _train_map(args, cfg, model, device, train_loader, test_loader) -> tuple[ModelState, dict]:
+def _train_map(args, cfg, model, device, train_loader, test_loader,
+               full_set_size: int) -> tuple[ModelState, dict]:
     model_cfg, map_cfg = cfg["model"], cfg["optimization"]["map"]
     flat, _ = params_from_jax(lecun_normal_params(FlatSpec.from_module(model),
                                                   model_cfg["seed"]))
@@ -140,20 +151,32 @@ def _train_map(args, cfg, model, device, train_loader, test_loader) -> tuple[Mod
         clock.tick()
         losses.append(loss)
 
-    state = train_map(state, train_loader, test_loader, num_epochs=map_cfg["epochs"],
-                      alpha=cfg["optimization"]["alpha"], lr=lr, callback=callback)
+    alpha = cfg["optimization"]["alpha"]
+    evidence_alpha = None
+    if args.alpha_mode == "evidence":
+        state, evidence_alpha = train_map_then_alpha(
+            state, train_loader, test_loader, num_epochs=map_cfg["epochs"], alpha0=alpha,
+            lr=lr, burnin=max(map_cfg["epochs"] // 4, 1), full_set_size=full_set_size,
+            example_block=cfg["optimization"]["ip"]["example_block"], callback=callback)
+        print(f"[alpha] evidence-optimized alpha = {evidence_alpha:.5f}")
+    else:
+        state = train_map(state, train_loader, test_loader, num_epochs=map_cfg["epochs"],
+                          alpha=alpha, lr=lr, callback=callback)
     stats = {**clock.summary(), "loss_first": float(losses[0]),
-             "loss_last": float(losses[-1])}
+             "loss_last": float(losses[-1]), "evidence_alpha": evidence_alpha}
     print(f"[MAP] {stats['steps']} steps, first {stats['first_step_s']:.4f} s, "
           f"then {stats['s_per_step']:.4f} s per step (median); loss "
           f"{stats['loss_first']:.4f} -> {stats['loss_last']:.4f}")
-    save_params(state.flat_params, state.spec, args.ckpt_map, f"map_{args.dataset}")
+    save_params(state.flat_params, state.spec, args.ckpt_map, f"map_{args.dataset}",
+                batch_stats=state.batch_stats)
     return state, stats
 
 
 def _load_map(args, cfg, model, device) -> ModelState:
     flat, spec, _ = load_params(args.ckpt_map, f"map_{args.dataset}")
-    state = ModelState(model, flat.to(device), model_kind=cfg["model"]["type"])
+    stats = load_batch_stats(args.ckpt_map, f"map_{args.dataset}")
+    state = ModelState(model, flat.to(device), model_kind=cfg["model"]["type"],
+                       batch_stats={key: t.to(device) for key, t in stats.items()})
     if spec != state.spec:
         raise ValueError(f"MAP file layout {spec.names} does not match the "
                          f"model's {state.spec.names}")
@@ -161,8 +184,9 @@ def _load_map(args, cfg, model, device) -> ModelState:
 
 
 def main(argv=None) -> dict:
-    """Run the mode; returns ``{"map": ..., "inducing": ...}`` timing and loss
-    summaries of the phases that ran."""
+    """Run the mode; returns ``{"map": ..., "alpha": ..., "inducing": ...}``
+    timing and loss summaries of the phases that ran (``alpha``: the Z
+    training's α, its source and the grid search's ``(alpha, nll)`` points)."""
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
     device = resolve_device(args.device)
@@ -173,7 +197,7 @@ def main(argv=None) -> dict:
     opt_cfg = cfg["optimization"]
     ip_cfg = opt_cfg["ip"]
 
-    train_loader, test_loader, _ = get_dataloaders(
+    train_loader, test_loader, val_loader = get_dataloaders(
         args.dataset, opt_cfg["map"]["batch_size"], root=args.data_dir)
     full_set_size = opt_cfg["full_set_size"] or len(train_loader.dataset)
     model = get_model(cfg["model"], DATASET_SHAPES[args.dataset][0]).to(device)
@@ -181,7 +205,7 @@ def main(argv=None) -> dict:
     result = {}
     if args.mode in ("train_map", "full_pipeline"):
         state, result["map"] = _train_map(args, cfg, model, device, train_loader,
-                                          test_loader)
+                                          test_loader, full_set_size)
         print("[DONE] MAP training.")
         if args.mode == "train_map":
             return result
@@ -195,7 +219,20 @@ def main(argv=None) -> dict:
                              device=device)
     ip_loader, _, _ = get_dataloaders(args.dataset, ip_cfg["batch_size"], aug=False,
                                       root=args.data_dir)
-    alpha_ip, alpha_src = args.alpha_ip, "cli"
+    evidence_alpha = result.get("map", {}).get("evidence_alpha")
+    alpha_ip = args.alpha_ip if args.alpha_ip is not None else evidence_alpha
+    alpha_src = "cli" if args.alpha_ip is not None else "evidence"
+    grid = []
+    if alpha_ip is None:
+        sampling_cfg = cfg["sampling"]
+        alpha_ip = grid_search_alpha(
+            state, z_init, val_loader, full_set_size=full_set_size,
+            num_mc_samples=ip_cfg["mc_samples"], log10_min=1.0, log10_max=3.0,
+            n_coarse=8, range_clip_min=args.range_clip if args.range_clip > 0 else None,
+            predictive=sampling_cfg["predictive"], example_block=ip_cfg["example_block"],
+            sample_block=sampling_cfg["sample_block"], history=grid)
+        alpha_src = "grid"
+    result["alpha"] = {"alpha_ip": float(alpha_ip), "alpha_src": alpha_src, "grid": grid}
     objective = args.objective or ip_cfg["objective"]
     if objective not in OBJECTIVES:
         raise NotImplementedError(f"objective {objective!r} is not ported yet "

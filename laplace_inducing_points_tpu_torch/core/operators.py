@@ -42,9 +42,13 @@ def pdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def model_outputs(state, flat_params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Batched network outputs ``(M, K)`` at the flat weights ``flat_params``;
-    the regressor's ``(mu, logvar)`` is reduced to ``mu``."""
-    out = functional_call(state.model, state.spec.unflatten(flat_params), (x,))
+    """Batched network outputs ``(M, K)`` at the flat weights ``flat_params``,
+    in eval mode: BatchNorm normalises with the state's frozen
+    ``batch_stats``, so every jvp, vjp and row build sees the same fixed
+    function of the weights. The regressor's ``(mu, logvar)`` is reduced to
+    ``mu``."""
+    out = functional_call(state.model,
+                          {**state.spec.unflatten(flat_params), **state.batch_stats}, (x,))
     if isinstance(out, tuple):
         out = out[0]
     return out

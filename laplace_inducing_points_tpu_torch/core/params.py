@@ -9,6 +9,8 @@ live in that vector. The port keeps the same order and the same leaf layouts
 (HWIO conv kernels, ``(in, out)`` dense kernels), so the two packages'
 vectors agree entry by entry. ``FlatSpec`` records the order; the torch
 models keep their parameters in these layouts and permute at call time.
+BatchNorm statistics (Flax's ``batch_stats`` collection) stay outside the
+vector: ``batch_stats_from_jax``/``batch_stats_to_jax`` convert them.
 """
 
 from __future__ import annotations
@@ -109,29 +111,48 @@ def params_from_jax(tree: Mapping[str, Any]) -> tuple[torch.Tensor, FlatSpec]:
 
 def params_to_jax(flat: torch.Tensor, spec: FlatSpec) -> dict:
     """Inverse of :func:`params_from_jax`: the nested tree of numpy leaves."""
-    tree: dict = {}
-    for path, view in zip(spec.paths, spec.unflatten(flat.detach().cpu()).values()):
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = view.numpy().copy()
-    return tree
+    return _nested((path, view.numpy().copy()) for path, view in
+                   zip(spec.paths, spec.unflatten(flat.detach().cpu()).values()))
 
 
-def lecun_normal_params(spec: FlatSpec, seed: int) -> dict:
-    """A seeded numpy init in the JAX layout: kernels ~ N(0, 1/fan_in) with
-    ``fan_in`` the product of all but the last axis (HWIO and ``(in, out)``
-    alike), biases zero."""
-    rng = np.random.default_rng(seed)
+def _nested(items) -> dict:
+    """The nested tree of ``(path, leaf)`` pairs."""
     tree: dict = {}
-    for path, shape in zip(spec.paths, spec.shapes):
-        if path[-1] == "kernel":
-            fan_in = int(np.prod(shape[:-1]))
-            leaf = (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
-        else:
-            leaf = np.zeros(shape, dtype=np.float32)
+    for path, leaf in items:
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = leaf
     return tree
+
+
+def batch_stats_from_jax(tree: Mapping[str, Any], device=None) -> dict[str, torch.Tensor]:
+    """A Flax ``batch_stats`` tree (numpy leaves, ``{"BatchNorm_0": {"mean",
+    "var"}, ...}``) as the port's statistics: f32 tensors keyed like the
+    module's buffers (``"BasicBlock_0.BatchNorm_1.mean"``)."""
+    return {".".join(path): torch.tensor(np.asarray(leaf, dtype=np.float32), device=device)
+            for path, leaf in _sorted_leaves(tree)}
+
+
+def batch_stats_to_jax(stats: Mapping[str, torch.Tensor]) -> dict:
+    """Inverse of :func:`batch_stats_from_jax`: the nested tree of numpy leaves."""
+    return _nested((tuple(name.split(".")), t.detach().cpu().numpy().copy())
+                   for name, t in sorted(stats.items()))
+
+
+def lecun_normal_params(spec: FlatSpec, seed: int) -> dict:
+    """A seeded numpy init in the JAX layout: kernels ~ N(0, 1/fan_in) with
+    ``fan_in`` the product of all but the last axis (HWIO and ``(in, out)``
+    alike), BatchNorm ``scale`` one, biases zero."""
+    rng = np.random.default_rng(seed)
+    leaves = []
+    for path, shape in zip(spec.paths, spec.shapes):
+        if path[-1] == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            leaf = (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
+        elif path[-1] == "scale":
+            leaf = np.ones(shape, dtype=np.float32)
+        else:
+            leaf = np.zeros(shape, dtype=np.float32)
+        leaves.append((path, leaf))
+    return _nested(leaves)

@@ -2,9 +2,10 @@
 
 Counterpart of ``laplace_inducing_points_tpu/data/scale.py``: the IDX and
 npz readers, the deterministic synthetic surrogate (``:83-105``,
-bit-identical) and the 98/2 train/val split. Nothing is downloaded: a
-dataset missing under ``root`` is replaced by the surrogate, and a line says
-so. CIFAR train-time augmentation is not ported yet (ROADMAP, Queue A).
+bit-identical), the 98/2 train/val split and CIFAR-10's train-time
+augmentation (``:130-161``: RandomCrop(32, pad 4) plus a horizontal flip,
+through the native ``crop_flip_f32``). Nothing is downloaded: a dataset
+missing under ``root`` is replaced by the surrogate, and a line says so.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import struct
 
 import numpy as np
 
+from laplace_inducing_points_tpu_torch.data import native
 from laplace_inducing_points_tpu_torch.data.loader import ArrayDataset, DataLoader
 
 DATASET_SHAPES = {
@@ -100,6 +102,40 @@ def load_arrays(name: str, train: bool, root: str = "data"):
     return _synthetic(name, train)
 
 
+class AugmentedDataset(ArrayDataset):
+    """CIFAR train-time augmentation, RandomCrop(32, pad 4) + HFlip, applied per
+    batch: :meth:`take` draws one seed from the dataset's generator and crops
+    and flips the batch out of the zero-padded images with it, as the
+    reference's ``AugmentedDataset.take`` does, so the same indices and
+    ``seed`` give the same images in both packages."""
+
+    def __init__(self, x, y, pad: int = 4, seed: int = 0):
+        super().__init__(x, y)
+        self.pad = pad
+        self._rng = np.random.default_rng(seed)
+        self._padded = np.ascontiguousarray(np.pad(
+            self.x, ((0, 0), (pad, pad), (pad, pad), (0, 0)),
+            mode="constant").astype(np.float32))
+
+    def take(self, idx: np.ndarray):
+        h, w = self.x.shape[1], self.x.shape[2]
+        out = native.crop_flip_f32(self._padded, np.asarray(idx), h, w, self.pad,
+                                   int(self._rng.integers(0, 2**63 - 1)))
+        return out, self.y[idx]
+
+
+class AugmentedLoader(DataLoader):
+    """A :class:`DataLoader` whose batches come from
+    :meth:`AugmentedDataset.take`."""
+
+    def __iter__(self):
+        n = len(self.dataset)
+        idx = self._rng.permutation(n) if self.shuffle else np.arange(n)
+        stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
+        for s in range(0, stop, self.batch_size):
+            yield self.dataset.take(idx[s:s + self.batch_size])
+
+
 def get_dataloaders(name: str, batch_size: int, *, aug: bool = True,
                     root: str = "data", seed: int = 0):
     """train/test/val loaders with the reference's 98/2 train/val split;
@@ -107,19 +143,21 @@ def get_dataloaders(name: str, batch_size: int, *, aug: bool = True,
 
     ``aug`` asks for train-time augmentation, which the reference applies to
     CIFAR-10 only (its ``data/scale.py:177``); MNIST and FashionMNIST have
-    none, and CIFAR-10's is not ported yet.
+    none.
     """
-    if name == "cifar10" and aug:
-        raise NotImplementedError("CIFAR-10 train-time augmentation is not ported "
-                                  "yet (ROADMAP, Queue A): pass aug=False")
     x_all, y_all = load_arrays(name, train=True, root=root)
     x_test, y_test = load_arrays(name, train=False, root=root)
 
     n_total = x_all.shape[0]
     n_val = int(VAL_FRACTION * n_total)
     n_train = n_total - n_val
-    train_loader = DataLoader(ArrayDataset(x_all[:n_train], y_all[:n_train]),
-                              batch_size, shuffle=True, seed=seed)
+    if name == "cifar10" and aug:
+        train_loader = AugmentedLoader(
+            AugmentedDataset(x_all[:n_train], y_all[:n_train], seed=seed), batch_size,
+            shuffle=True, seed=seed)
+    else:
+        train_loader = DataLoader(ArrayDataset(x_all[:n_train], y_all[:n_train]),
+                                  batch_size, shuffle=True, seed=seed)
     test_loader = DataLoader(ArrayDataset(x_test, y_test), batch_size,
                              drop_last=False)
     val_loader = DataLoader(ArrayDataset(x_all[n_train:], y_all[n_train:]),

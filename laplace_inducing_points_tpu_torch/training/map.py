@@ -1,13 +1,15 @@
 """MAP training of the classifier weights.
 
 Counterpart of ``laplace_inducing_points_tpu/training/map.py``: ``l2_prior``
-(``:23``), the classifier branch of ``_loss`` (``:37``), ``map_step``
-(``:66``), ``eval_classification`` (``:81``), ``train_map`` (``:104``) and
-``cosine_lr`` (``:145``). The weights are the flat vector of the port's
-``ModelState``, applied through ``torch.func.functional_call``; Adam is
-``torch.optim.Adam`` set up as ``optax.adam`` (ε = 1e-8 added to √v̂). The
-regressor's Gaussian NLL and the BatchNorm statistics wait for the toy and
-ResNet slices (ROADMAP, Queue A).
+(``:23``), the classifier branch of ``_loss`` with its BatchNorm branch
+(``:37-62``), ``map_step`` (``:66``), ``eval_classification`` (``:81``),
+``train_map`` (``:104``) and ``cosine_lr`` (``:145``). The weights are the flat
+vector of the port's ``ModelState``, applied through
+``torch.func.functional_call``; Adam is ``torch.optim.Adam`` set up as
+``optax.adam`` (ε = 1e-8 added to √v̂). A model with BatchNorm runs its MAP
+forward in train mode (batch statistics) and the step writes the updated
+statistics into the state; evaluation uses the stored ones. The regressor's
+Gaussian NLL waits for the toy slice (ROADMAP, Queue A).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Callable, Iterable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.func import functional_call
 
 from laplace_inducing_points_tpu_torch.core.operators import model_outputs
 from laplace_inducing_points_tpu_torch.models.state import ModelState
@@ -38,13 +41,28 @@ def _require_classifier(state) -> None:
                                   "(ROADMAP, Queue A)")
 
 
+def train_outputs(state, flat: torch.Tensor, x: torch.Tensor):
+    """``(outputs, new batch_stats)`` of the MAP forward: BatchNorm in train
+    mode, its statistics updated on copies of ``state.batch_stats`` (the
+    reference's ``apply_fn(..., train=True, mutable=["batch_stats"])``); a
+    model without BatchNorm runs as it always does."""
+    if not state.batch_stats:
+        return model_outputs(state, flat, x), state.batch_stats
+    stats = {name: t.clone() for name, t in state.batch_stats.items()}
+    out = functional_call(state.model, {**state.spec.unflatten(flat), **stats}, (x,),
+                          {"train": True})
+    return out, stats
+
+
 def classifier_loss(state, flat: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                    prior_precision: float) -> torch.Tensor:
-    """Negative log joint of one batch: mean softmax cross-entropy plus the L2
-    prior on every leaf (weights and biases at ``prior_precision``)."""
-    logits = model_outputs(state, flat, x)
+                    prior_precision: float):
+    """``(loss, new batch_stats)`` of one batch: mean softmax cross-entropy
+    plus the L2 prior on every leaf (weights and biases at
+    ``prior_precision``; BatchNorm's ``bias`` counts as a bias, its ``scale``
+    as a weight)."""
+    logits, stats = train_outputs(state, flat, x)
     nll = F.cross_entropy(logits, y.reshape(-1).long())
-    return nll + l2_prior(state, flat, prior_precision, prior_precision)
+    return nll + l2_prior(state, flat, prior_precision, prior_precision), stats
 
 
 def _to_device(batch, device):
@@ -55,26 +73,52 @@ def _to_device(batch, device):
 
 def map_step(state, flat: torch.Tensor, optimizer: torch.optim.Optimizer, batch,
              prior_precision: float) -> torch.Tensor:
-    """One MAP step on ``flat`` (a leaf that ``optimizer`` holds), in place;
-    returns the batch loss before the step."""
+    """One MAP step on ``flat`` (a leaf that ``optimizer`` holds), in place,
+    and the batch's updated statistics into ``state.batch_stats``; returns the
+    batch loss before the step."""
     _require_classifier(state)
     x, y = _to_device(batch, flat.device)
     optimizer.zero_grad(set_to_none=True)
-    loss = classifier_loss(state, flat, x, y, prior_precision)
+    loss, stats = classifier_loss(state, flat, x, y, prior_precision)
     loss.backward()
     optimizer.step()
+    state.batch_stats = stats
     return loss.detach()
 
 
 @torch.no_grad()
 def eval_classification(state, batch) -> tuple[float, float]:
-    """``(mean NLL, accuracy)`` of one batch at ``state.flat_params``."""
+    """``(mean NLL, accuracy)`` of one batch at ``state.flat_params`` and the
+    stored statistics."""
     x, y = _to_device(batch, state.device)
     logits = model_outputs(state, state.flat_params, x)
     labels = y.reshape(-1).long()
     nll = F.cross_entropy(logits, labels)
     acc = torch.mean((torch.argmax(logits, dim=-1) == labels).float())
     return float(nll), float(acc)
+
+
+def evaluate_loader(state, loader: Iterable) -> tuple[float, float]:
+    """Batch means of :func:`eval_classification` over ``loader``."""
+    tot_nll, tot_acc, nb = 0.0, 0.0, 0
+    for batch in loader:
+        nll, acc = eval_classification(state, batch)
+        tot_nll += nll
+        tot_acc += acc
+        nb += 1
+    nb = max(nb, 1)
+    return tot_nll / nb, tot_acc / nb
+
+
+def map_optimizer(flat: torch.Tensor, lr: float | Callable[[int], float]):
+    """``(Adam on flat as optax.adam sets it up, the lr schedule)``."""
+    schedule = lr if callable(lr) else (lambda _: lr)
+    return torch.optim.Adam([flat], lr=schedule(0), eps=1e-8), schedule
+
+
+def set_lr(optimizer: torch.optim.Optimizer, value: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = value
 
 
 def cosine_lr(init_value: float, num_epochs: int, steps_per_epoch: int,
@@ -105,24 +149,29 @@ def train_map(state, train_loader: Iterable, test_loader: Iterable, *,
     """
     _require_classifier(state)
     flat = state.flat_params.detach().clone().requires_grad_(True)
-    schedule = lr if callable(lr) else (lambda _: lr)
-    optimizer = torch.optim.Adam([flat], lr=schedule(0), eps=1e-8)
+    work = working_state(state, flat)
+    optimizer, schedule = map_optimizer(flat, lr)
     step = 0
     for epoch in range(num_epochs):
         for batch in train_loader:
-            for group in optimizer.param_groups:
-                group["lr"] = schedule(step)
-            loss = map_step(state, flat, optimizer, batch, alpha)
+            set_lr(optimizer, schedule(step))
+            loss = map_step(work, flat, optimizer, batch, alpha)
             if callback is not None:
                 callback(step, loss)
             step += 1
-        trained = ModelState(state.model, flat.detach(), state.model_kind)
-        tot_nll, tot_acc, nb = 0.0, 0.0, 0
-        for batch in test_loader:
-            nll, acc = eval_classification(trained, batch)
-            tot_nll += nll
-            tot_acc += acc
-            nb += 1
-        nb = max(nb, 1)
-        print(f"[MAP e{epoch:4d}] NLL={tot_nll / nb:.4f} ACC={tot_acc / nb:.4f}")
-    return ModelState(state.model, flat.detach().clone(), state.model_kind)
+        nll, acc = evaluate_loader(trained_state(work), test_loader)
+        print(f"[MAP e{epoch:4d}] NLL={nll:.4f} ACC={acc:.4f}")
+    return trained_state(work)
+
+
+def working_state(state, flat: torch.Tensor) -> ModelState:
+    """A state around the trained leaf ``flat`` with its own copy of the
+    statistics, so the caller's state is left as it was."""
+    return ModelState(state.model, flat, state.model_kind,
+                      {name: t.clone() for name, t in state.batch_stats.items()})
+
+
+def trained_state(work: ModelState) -> ModelState:
+    """The weights and statistics of a working state, detached."""
+    return ModelState(work.model, work.flat_params.detach().clone(), work.model_kind,
+                      {name: t.clone() for name, t in work.batch_stats.items()})

@@ -5,8 +5,9 @@ formats, MAP weights as a flat vector.
 write the same npz/json files as
 ``laplace_inducing_points_tpu/utils/checkpoint.py:130-172``, so an inducing
 set written by the JAX package loads as it is. MAP weights are the flat
-vector plus its ``FlatSpec``, written with ``torch.save``; a Flax tree is
-converted with ``core.params.params_from_jax``.
+vector plus its ``FlatSpec`` and the BatchNorm statistics, written with
+``torch.save``; a Flax tree is converted with ``core.params.params_from_jax``
+and ``batch_stats_from_jax``.
 """
 
 from __future__ import annotations
@@ -63,14 +64,17 @@ def load_run_meta(ckpt_dir: str, name: str) -> Optional[dict]:
 
 
 def save_params(flat: torch.Tensor, spec: FlatSpec, ckpt_dir: str, name: str,
-                logvar: Optional[float] = None) -> str:
-    """Write MAP weights as ``{name}.pt``: the flat vector, its spec and, for
-    a regressor, the learned ``logvar``."""
+                logvar: Optional[float] = None,
+                batch_stats: Optional[dict[str, torch.Tensor]] = None) -> str:
+    """Write MAP weights as ``{name}.pt``: the flat vector, its spec, the
+    BatchNorm statistics (``ModelState.batch_stats``) and, for a regressor,
+    the learned ``logvar``."""
     path = os.path.abspath(ckpt_dir)
     os.makedirs(path, exist_ok=True)
     fn = os.path.join(path, f"{name}.pt")
+    stats = {key: t.detach().cpu() for key, t in (batch_stats or {}).items()}
     torch.save({"flat": flat.detach().cpu(), "spec": spec.to_dict(),
-                "logvar": logvar}, fn)
+                "logvar": logvar, "batch_stats": stats}, fn)
     print(f"[checkpoint] saved params '{name}' -> {fn}")
     return fn
 
@@ -83,3 +87,12 @@ def load_params(ckpt_dir: str, name: str) -> tuple[torch.Tensor, FlatSpec, Optio
     blob = torch.load(fn, map_location="cpu", weights_only=True)
     print(f"[checkpoint] loaded params '{name}' from {fn}")
     return blob["flat"], FlatSpec.from_dict(blob["spec"]), blob["logvar"]
+
+
+def load_batch_stats(ckpt_dir: str, name: str) -> dict[str, torch.Tensor]:
+    """The BatchNorm statistics of ``{name}.pt``, on the CPU; empty for a
+    model without BatchNorm and for a file written before they were stored."""
+    fn = os.path.join(os.path.abspath(ckpt_dir), f"{name}.pt")
+    if not os.path.exists(fn):
+        raise FileNotFoundError(fn)
+    return dict(torch.load(fn, map_location="cpu", weights_only=True).get("batch_stats", {}))

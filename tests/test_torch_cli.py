@@ -102,7 +102,7 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) >= 29, names\n"
         "new = {pkg.__name__ + '.' + m for m in ('training.inducing', 'training.map', "
-        "'cli.train_scale')}\n"
+        "'cli.train_scale', 'training.alpha', 'training.grid_search', 'data.native')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'laplace_inducing_points_tpu'))\n"

@@ -104,12 +104,17 @@ def test_config_matches_jax(path):
 
 
 def test_registry_builds_ported_models_and_refuses_the_rest():
+    """Every model of the JAX registry is ported; an unknown name raises."""
     assert isinstance(get_model({"name": "LeNet5"}, (28, 28, 1)), LeNet5)
     clf = get_model({"name": "classifier", "num_h": 8, "num_l": 2, "num_c": 3}, (2,))
     assert FlatSpec.from_module(clf).num_params == (2 * 8 + 8) + (8 * 8 + 8) + (8 * 3 + 3)
-    for name in ("large_classifier", "ResNet1"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model({"name": name}, (28, 28, 1))
+    mlp = get_model({"name": "large_classifier", "num_h": [16, 8], "num_l": 2, "num_c": 3},
+                    (4, 4, 1))
+    assert FlatSpec.from_module(mlp).num_params == (16 * 16 + 16) + (16 * 8 + 8) + (8 * 3 + 3)
+    assert FlatSpec.from_module(get_model({"name": "ResNet1", "num_c": 10},
+                                          (28, 28, 1))).num_params == 1084586
+    with pytest.raises(ValueError, match="Unknown model"):
+        get_model({"name": "ResNet50"}, (28, 28, 1))
 
 
 def test_cuda_request_without_gpu_raises():

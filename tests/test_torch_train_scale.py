@@ -1,8 +1,10 @@
 """The port's trainer CLI end to end on the CPU at a tiny configuration, chained
-into the evaluation CLI, and its refusals of what is not ported."""
+into the evaluation CLI: α given, from the grid search and from the evidence;
+and its refusals of what is not ported."""
 
 import json
 import math
+import os
 
 import numpy as np
 import pytest
@@ -10,8 +12,12 @@ import torch
 
 from laplace_inducing_points_tpu.utils import checkpoint as jckpt
 from laplace_inducing_points_tpu_torch.cli import evaluate, train_scale
+from laplace_inducing_points_tpu_torch.core.params import (FlatSpec, lecun_normal_params,
+                                                           params_from_jax)
+from laplace_inducing_points_tpu_torch.models.scale import ResNet1M
+from laplace_inducing_points_tpu_torch.utils.checkpoint import save_params
 
-from test_torch_cli import CONFIG
+from test_torch_cli import CONFIG, REPO
 
 
 # the stochastic objective's estimator knobs, cut for the CPU: 16 probes, an
@@ -97,19 +103,49 @@ def test_train_inducing_stochastic_on_cpu(tmp_path):
     assert all(math.isfinite(records[0][key]) for key in ("nll", "acc", "brier", "ece"))
 
 
+def test_alpha_from_the_grid_search_on_cpu(tmp_path):
+    """Without ``--alpha_ip`` the grid search runs on the MAP and the initial Z
+    (log10 alpha from 1 to 3: 8 points, then 3 between the best one's
+    neighbours), and its alpha trains Z and reaches the evaluation."""
+    result = train_scale.main(["full_pipeline", *_common(tmp_path)])
+    alpha = result["alpha"]
+    assert alpha["alpha_src"] == "grid" and len(alpha["grid"]) == 11
+    np.testing.assert_allclose([a for a, _ in alpha["grid"][:8]], np.logspace(1, 3, 8))
+    assert all(math.isfinite(nll) for _, nll in alpha["grid"])
+    best = min(alpha["grid"], key=lambda point: point[1])
+    assert alpha["alpha_ip"] == best[0] and 10.0 <= best[0] <= 1000.0
+    meta = jckpt.load_run_meta(str(tmp_path / "ind"), "ind_mnist")
+    assert meta == {"alpha_ip": best[0], "alpha_src": "grid", "objective": "gram"}
+    records = evaluate.main(["--scalable", "--predictive", "weight", "--iters", "1",
+                             "--max_batches", "1", *_common(tmp_path)])
+    assert records[0]["alpha"] == best[0]
+
+
+def test_alpha_from_the_evidence_on_cpu(tmp_path):
+    """``--alpha_mode evidence``: 5 MAP epochs (burn-in 1), an alpha step after
+    the fifth on its last batch, and that alpha trains Z."""
+    common = _common(tmp_path, (("    epochs: 1\n", "    epochs: 5\n"),
+                                ("    batch_size: 256\n", "    batch_size: 64\n")))
+    result = train_scale.main(["full_pipeline", "--alpha_mode", "evidence", *common])
+    assert result["map"]["steps"] == 5 * (8029 // 64)
+    evidence = result["map"]["evidence_alpha"]
+    # one Adam step on log alpha from the config's 0.005 moves it by lr = 0.05
+    np.testing.assert_allclose(abs(math.log(evidence / 0.005)), 0.05, rtol=1e-3)
+    assert result["alpha"] == {"alpha_ip": evidence, "alpha_src": "evidence", "grid": []}
+    assert jckpt.load_run_meta(str(tmp_path / "ind"), "ind_mnist")["alpha_src"] == "evidence"
+    assert result["Z_moved"] > 0
+
+
 @pytest.mark.parametrize("extra", [
     ["--continue"],
-    ["--alpha_mode", "evidence"],
+    ["--objective", "gram_chunked"],
     ["--profile", "trace"],
     ["--mesh"],
     ["--objective", "stochastic_matfree"],
     ["--objective", "dense"],
-    [],                                         # no --alpha_ip: the grid search
 ])
 def test_unported_flags_raise(tmp_path, extra):
-    argv = ["full_pipeline", *extra, *_common(tmp_path)]
-    if extra:
-        argv += ["--alpha_ip", "0.005"]
+    argv = ["full_pipeline", *extra, *_common(tmp_path), "--alpha_ip", "0.005"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_scale.main(argv)
     assert not (tmp_path / "map").exists()       # refused before any work
@@ -122,3 +158,42 @@ def test_cuda_without_gpu_raises(tmp_path):
     argv[argv.index("cpu")] = "cuda"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_scale.main(argv)
+
+
+RESNET_CONFIG = os.path.join(REPO, "configs", "scale", "resnet1m_cifar10.yml")
+
+
+def test_resnet1m_train_inducing_then_evaluate_on_cpu(tmp_path):
+    """ResNet1M at full width (D = 1,084,586) through both CLIs on the CIFAR-10
+    surrogate: a MAP file with BatchNorm statistics, one gram Z step at
+    alpha 10 in example blocks of 4 as shipped (M = 2, a Z batch of 2), then
+    the weight predictive on one test batch of 8 (3 samples in sample blocks
+    of 2)."""
+    text = open(RESNET_CONFIG).read()
+    for old, new in (("    epochs: 100\n", "    epochs: 1\n"), ("    m: 50\n", "    m: 2\n"),
+                     ("    batch_size: 32\n", "    batch_size: 2\n"),
+                     ("    batch_size: 256\n", "    batch_size: 8\n"),
+                     ("    mc_samples: 200\n", "    mc_samples: 3\n"),
+                     ("  sample_block: 25\n", "  sample_block: 2\n")):
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    config = tmp_path / "resnet1m_tiny.yml"
+    config.write_text(text)
+    (tmp_path / "data").mkdir()
+    model = ResNet1M(10)
+    flat, spec = params_from_jax(lecun_normal_params(FlatSpec.from_module(model), 0))
+    rng = np.random.default_rng(0)
+    stats = {name: torch.from_numpy((0.1 * rng.standard_normal(b.shape) if name.endswith("mean")
+                                     else rng.uniform(0.5, 1.5, b.shape)).astype(np.float32))
+             for name, b in model.named_buffers()}
+    save_params(flat, spec, str(tmp_path / "map"), "map_cifar10", batch_stats=stats)
+    common = ["--dataset", "cifar10", "--config", str(config), "--device", "cpu",
+              "--ckpt_map", str(tmp_path / "map"), "--ckpt_induc", str(tmp_path / "ind"),
+              "--data_dir", str(tmp_path / "data")]
+    result = train_scale.main(["train_inducing", "--alpha_ip", "10", *common])
+    assert result["Z_moved"] > 0 and result["alpha"]["alpha_src"] == "cli"
+    records = evaluate.main(["--scalable", "--predictive", "weight", "--iters", "1",
+                             "--max_batches", "1", *common])
+    assert records[0]["alpha"] == 10.0 and records[0]["batches"] == 1
+    for key in ("nll", "acc", "brier", "ece"):
+        assert math.isfinite(records[0][key]), key

@@ -317,10 +317,11 @@ def test_cycling_batches_restarts_like_jax():
 
 
 def test_get_dataloaders_augmentation(tmp_path):
+    """Train-time augmentation is CIFAR-10's only, as in the reference."""
     train, _, _ = tscale.get_dataloaders("mnist", 64, aug=True, root=str(tmp_path))
-    assert len(train) == 8029 // 64
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tscale.get_dataloaders("cifar10", 64, aug=True, root=str(tmp_path))
+    assert len(train) == 8029 // 64 and not isinstance(train, tscale.AugmentedLoader)
+    cifar, _, _ = tscale.get_dataloaders("cifar10", 64, aug=True, root=str(tmp_path))
+    assert isinstance(cifar, tscale.AugmentedLoader) and len(cifar) == 8029 // 64
 
 
 def test_run_meta_reads_in_both_packages(tmp_path):

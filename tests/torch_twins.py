@@ -17,7 +17,7 @@ from laplace_inducing_points_tpu.models.scale import LeNet5 as JaxLeNet5
 from laplace_inducing_points_tpu.models.state import create_train_state
 from laplace_inducing_points_tpu.models.toy import (SimpleClassifier as JaxClassifier,
                                                     SimpleRegressor as JaxRegressor)
-from laplace_inducing_points_tpu_torch.core.params import params_from_jax
+from laplace_inducing_points_tpu_torch.core.params import batch_stats_from_jax, params_from_jax
 from laplace_inducing_points_tpu_torch.models.scale import LeNet5
 from laplace_inducing_points_tpu_torch.models.state import ModelState
 from laplace_inducing_points_tpu_torch.models.toy import SimpleClassifier, SimpleRegressor
@@ -27,8 +27,9 @@ LOGVAR = -0.7       # the regressor's observation log-variance in the twins
 
 
 def _numpy_tree(tree, rng: np.random.Generator):
-    """Seeded leaves in the tree's shapes: kernels ~ N(0, 1/fan_in), other
-    leaves (biases, logvar) ~ 0.1·N(0, 1), so every layout is exercised."""
+    """Seeded leaves in the tree's shapes: kernels ~ N(0, 1/fan_in), BatchNorm
+    scales ~ 1 + 0.1·N(0, 1), other leaves (biases, logvar) ~ 0.1·N(0, 1), so
+    every layout is exercised."""
     out = {}
     for key, value in tree.items():
         if isinstance(value, dict) or hasattr(value, "items"):
@@ -36,9 +37,43 @@ def _numpy_tree(tree, rng: np.random.Generator):
         elif key == "kernel":
             fan_in = int(np.prod(value.shape[:-1]))
             out[key] = (rng.standard_normal(value.shape) / np.sqrt(fan_in)).astype(np.float32)
+        elif key == "scale":
+            out[key] = (1.0 + 0.1 * rng.standard_normal(value.shape)).astype(np.float32)
         else:
             out[key] = (0.1 * rng.standard_normal(value.shape)).astype(np.float32)
     return out
+
+
+def numpy_batch_stats(tree, rng: np.random.Generator):
+    """Seeded BatchNorm statistics in a ``batch_stats`` tree's shapes: means
+    ~ 0.1·N(0, 1), variances ~ U(0.5, 1.5)."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict) or hasattr(value, "items"):
+            out[key] = numpy_batch_stats(dict(value), rng)
+        elif key == "mean":
+            out[key] = (0.1 * rng.standard_normal(value.shape)).astype(np.float32)
+        else:
+            out[key] = rng.uniform(0.5, 1.5, value.shape).astype(np.float32)
+    return out
+
+
+def convert_twins(jmodel, tmodel, dummy, model_kind: str = "classifier", seed: int = 0):
+    """``(jax_state, port_state, numpy_tree, numpy_batch_stats)``: one Flax
+    model and its port counterpart holding the same seeded weights and
+    BatchNorm statistics (``{}`` without BatchNorm), converted with
+    ``params_from_jax`` and ``batch_stats_from_jax``."""
+    jstate = create_train_state(jmodel, jax.random.PRNGKey(0), dummy,
+                                optax.adam(1e-3), model_kind=model_kind)
+    rng = np.random.default_rng(seed)
+    tree = _numpy_tree(dict(jstate.params), rng)
+    stats = numpy_batch_stats(dict(jstate.batch_stats), rng) if jstate.batch_stats else {}
+    jstate = jstate.replace(params=jax.tree.map(jnp.asarray, tree))
+    if stats:
+        jstate = jstate.replace(batch_stats=jax.tree.map(jnp.asarray, stats))
+    flat, _ = params_from_jax(tree)
+    return (jstate, ModelState(tmodel, flat, model_kind, batch_stats_from_jax(stats)),
+            tree, stats)
 
 
 def make_twins(kind: str, seed: int = 0):
