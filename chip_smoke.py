@@ -78,7 +78,44 @@ exits non-zero without printing a result:
     alpha_ip 10 as the config's header prescribes, example_block 4,
     sample_block 25; map.epochs 75 -> 10, ip.epochs 100 -> 3), then
     ``cli.evaluate.main`` on 2 test batches, checked and timed as phase 13;
-16. phase 8's gradient agreement on ResNet1M's trained MAP and Z.
+16. phase 8's gradient agreement on ResNet1M's trained MAP and Z;
+17. the matrix-free operators at M = 1,024 (``lenet5_mnist_matfree1k.yml``,
+    d = 10,240, seeded weights): the example-blocked W factor against the
+    monolithic one (value and dL/dZ of <Y, gram_matmat(X)>), the Gram action
+    against the rows through B1 and through B3 then B2 and against float64,
+    Nystrom-preconditioned and plain CG against a float64 Cholesky solve;
+18. the matfree slice as shipped: ``cli.train_scale.main full_pipeline`` on
+    ``lenet5_mnist_matfree1k.yml`` (12 MAP epochs, the alpha grid search on
+    the matfree predictive, ip.epochs 60 -> 3 on ``stochastic_matfree``, the
+    CG healthchecks), then ``cli.evaluate.main --predictive matfree`` on 2
+    test batches with two generators; B4 and its backward launched; the
+    split of a warm Z step (sketch, trace term with its CG solves, SLQ,
+    backward), every solve's iterations, the peak memory, the sketch build
+    and one serving batch;
+19. the acceptance checks on phase 18's MAP and Z: (a) matfree dL/dZ against
+    the materialized one on the same probes over precond_rank {0, 16, 64} x
+    cg_maxiter {25, 50, 100}, gated at the shipped knobs below the
+    materialized gradient's spread over 4 probe draws (the cosine of the
+    draws' mean with the exact gram dL/dZ printed); (b) 20 matfree, 20
+    materialized (same probes) and 20 gram steps on the same 2,560 images,
+    each one's change of their exact gram KL against the estimate's sd over
+    8 probe draws (printed), gated: the matfree and materialized changes
+    agree within that sd; (c) the healthcheck residual with cuDNN's TF32 on
+    and off (trap C1; printed);
+20. matfree against materialized Matheron draws on the same eps, eta (tight
+    CG gated at 1e-3; the shipped knobs printed), ``--predictive matfree``
+    against ``--predictive weight`` (exact) within the weight path's
+    generator noise; every kernel launched over phases 18-20; the kernels at
+    this path's shapes, timed (B1 (10240, D), B2/B3 at S = 32, B4 at P = 12
+    and 4 against Rx);
+21. ``lenet5_mnist_matfree4k.yml`` (M = 4,096, d = 40,960) on phase 18's MAP:
+    one Z step through ``cli.train_scale.main train_inducing --alpha_ip 50``
+    and one ``cli.evaluate.main --predictive matfree`` batch, timed with
+    their peak memory; its KL against the materialized one on the same
+    probes (Rz 10.1 GB, the Gram 6.7 GB).
+
+``python3 chip_smoke.py --phases 17,18,19,20,21`` runs phases 1, 2 and those
+of the list alone (19-21 need 18) and prints no result.
 
 The line before the last is the card's ``nvidia-smi`` line; the one before
 it is the per-kernel JSON; the last line is ``{"ok": true, "device": ...}``.
@@ -86,9 +123,11 @@ it is the per-kernel JSON; the last line is ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -763,13 +802,14 @@ GRAM_PATH_UNUSED = ("matmul_nn_backward", "ggn_sweep", "ggn_sweep_backward",
 
 def _cut_config(workdir: Path, config: str, cuts: dict, name: str) -> str:
     """A copy of ``config`` with the lines of ``cuts`` (old -> new epochs)
-    replaced, each of which it must hold once, written to ``workdir/name``."""
+    replaced, each of which it must hold once (a comment may follow the
+    number), written to ``workdir/name``."""
     text = Path(config).read_text()
     for old, new in cuts.items():
-        old, new = f"    epochs: {old}\n", f"    epochs: {new}\n"
-        if text.count(old) != 1:
-            raise AssertionError(f"{config} has no single line {old!r}")
-        text = text.replace(old, new)
+        pattern = re.compile(rf"^    epochs: {old}(?=[ \n])", re.MULTILINE)
+        if len(pattern.findall(text)) != 1:
+            raise AssertionError(f"{config} has no single line '    epochs: {old}'")
+        text = pattern.sub(f"    epochs: {new}", text)
     path = workdir / name
     path.write_text(text)
     return str(path)
@@ -1510,9 +1550,708 @@ def phase_scale_timings(train: dict, label: str) -> None:
           f"{statistics.median(s for _, s in batches[1:]):.4f} s (first {batches[0][1]:.4f} s)")
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# the matfree slice (phases 17-21): LeNet5 at M = 1,024 and 4,096
+# ---------------------------------------------------------------------------
+
+MATFREE = {"matfree1k": "configs/scale/lenet5_mnist_matfree1k.yml",
+           "matfree4k": "configs/scale/lenet5_mnist_matfree4k.yml"}
+ALPHA_4K = 50.0       # lenet5_mnist_matfree4k.yml's header (lines 19-26): --alpha_ip 50
+CONTRACT_RANKS = (0, 16, 64)        # phase 19(a): precond_rank x cg_maxiter
+CONTRACT_MAXITERS = (25, 50, 100)
+SPREAD_DRAWS = 4                    # probe draws behind dL/dZ's spread, phase 19(a)
+DESCENT_STEPS = 20                  # phase 19(b)
+DESCENT_IMAGES = 2560
+DESCENT_DRAWS = 8
+MATFREE_KERNELS = ("syrk", "matmul_nt", "matmul_nn", "ggn_sweep", "ggn_sweep_backward")
+
+
+@contextlib.contextmanager
+def _cg_solves():
+    """Record ``(right-hand sides, iterations, worst relative residual)`` of
+    every batched CG solve run inside, forward and backward."""
+    from laplace_inducing_points_tpu_torch.ops import cg
+    core, log = cg._cg_core, []
+
+    def logged(matmat, B, **kwargs):
+        X, info = core(matmat, B, **kwargs)
+        log.append((B.shape[0], info.iterations, info.rel_residual))
+        return X, info
+
+    cg._cg_core = logged
+    try:
+        yield log
+    finally:
+        cg._cg_core = core
+
+
+def _solves_line(solves) -> str:
+    return ", ".join(f"{p} rhs: {k} it ({r:.1e})" for p, k, r in solves)
+
+
+def _seeded_lenet5(seed: int):
+    """LeNet5 on the card with numpy lecun-normal weights from ``seed``."""
+    from laplace_inducing_points_tpu_torch.core.params import (FlatSpec, lecun_normal_params,
+                                                               params_from_jax)
+    from laplace_inducing_points_tpu_torch.models.scale import LeNet5
+    from laplace_inducing_points_tpu_torch.models.state import ModelState
+    flat, _ = params_from_jax(lecun_normal_params(FlatSpec.from_module(LeNet5()), seed))
+    return ModelState(LeNet5().cuda(), flat.cuda(), "classifier")
+
+
+def phase_operators(workdir: Path) -> None:
+    """The matrix-free operators at M = 1,024 (d = 10,240) on seeded LeNet5
+    weights and the first 1,024 surrogate training images: the blocked factor
+    against the monolithic one (value and dL/dZ of <Y, gram_matmat(X)>), the
+    Gram action against the rows through B1 and through B3 then B2 and a
+    float64 evaluation, and preconditioned CG against a float64 Cholesky
+    solve of C = G + (alpha/beta) I at the 4k header's alpha."""
+    print("== phase 17: matrix-free operators on the card (M = 1,024)", flush=True)
+    from laplace_inducing_points_tpu_torch.core import operators as ops
+    from laplace_inducing_points_tpu_torch.data.scale import load_arrays
+    from laplace_inducing_points_tpu_torch.ops.cg import cg_batched
+    from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nn, matmul_nt
+    from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk
+    from laplace_inducing_points_tpu_torch.ops.nystrom import precond_from_sketch
+    from laplace_inducing_points_tpu_torch.training.inducing import matfree_sketch
+    from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
+    cfg = load_experiment_config(MATFREE["matfree1k"])
+    opt, ip = cfg["optimization"], cfg["optimization"]["ip"]
+    state = _seeded_lenet5(cfg["model"]["seed"])
+    x_train, _ = load_arrays("mnist", train=True, root=str(workdir / "matfree1k_data"))
+    M, blk, P = ip["m"], ip["cg_example_block"], 4
+    Z = torch.as_tensor(x_train[:M]).cuda()
+    d = M * 10
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    Xp, Yp, B = (torch.randn(P, d, generator=gen, device="cuda") for _ in range(3))
+    out = {}
+    for name, make in (("WFactor", lambda z: ops.make_w_factor(state, z)),
+                       ("BlockedWFactor", lambda z: ops.make_w_factor_blocked(state, z, blk))):
+        z = Z.clone().requires_grad_()
+
+        def run():
+            value = torch.sum(Yp * make(z).gram_matmat(Xp))
+            return value.detach(), torch.autograd.grad(value, z)[0]
+
+        run()
+        torch.cuda.reset_peak_memory_stats()
+        (value, grad), seconds = _host_s(run)
+        out[name] = (value, grad, seconds, torch.cuda.max_memory_allocated() / 2**30)
+    (v0, g0, s0, p0), (v1, g1, s1, p1) = out["WFactor"], out["BlockedWFactor"]
+    rel_v, rel_g = abs(float(v1 - v0)) / abs(float(v0)), _rel(g1, g0)
+    print(f"  <Y, gram_matmat(X)> at P={P}: WFactor {float(v0):.8g} ({s0:.3f} s with dL/dZ, "
+          f"peak {p0:.2f} GiB), BlockedWFactor (blocks of {blk}) {float(v1):.8g} ({s1:.3f} s, "
+          f"peak {p1:.2f} GiB); value rel {rel_v:.2e}, dL/dZ rel {rel_g:.2e}", flush=True)
+    if not (rel_v <= 1e-5 and rel_g <= 1e-4):
+        raise AssertionError(f"blocked factor vs monolithic: value {rel_v:.2e}, dZ {rel_g:.2e}")
+    blocked = ops.make_w_factor_blocked(state, Z, blk)
+    with torch.no_grad():
+        Rz = ops.dense_wt(state, Z)
+        G = syrk(Rz)
+        free, free_s = _host_s(lambda: blocked.gram_matmat(Xp))
+        via_b1 = Xp @ G
+        via_rows = matmul_nt(matmul_nn(Xp, Rz), Rz)
+        ref = (Xp.double() @ Rz.double()) @ Rz.double().T
+    errs = {"matrix-free": _rel(free, ref), "syrk(Rz)": _rel(via_b1, ref),
+            "matmul_nn then matmul_nt": _rel(via_rows, ref)}
+    print(f"  gram_matmat ({free_s:.3f} s, P={P}) vs float64 rows: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; matrix-free vs syrk(Rz) {_rel(free, via_b1):.2e}", flush=True)
+    if not errs["matrix-free"] <= REL_TOL:
+        raise AssertionError(f"gram_matmat vs float64 rows: {errs['matrix-free']:.2e}")
+    rho = ALPHA_4K / (opt["full_set_size"] / M)
+    C64 = G.double() + rho * torch.eye(d, device="cuda", dtype=torch.float64)
+    x_ref = torch.cholesky_solve(B.double().T, torch.linalg.cholesky(C64)).T
+    x_f32 = torch.cholesky_solve(B.T, torch.linalg.cholesky(G + rho * torch.eye(d, device="cuda"))).T
+    lam_max = float(torch.linalg.eigvalsh(C64)[-1]) - rho
+    del Rz, G, C64
+    sketch, sketch_s = _host_s(lambda: matfree_sketch(state, Z, ip["precond_rank"], gen,
+                                                      ip["precond_power"], blk))
+    for label, precond in (("Nystrom rank %d, power %d" % (ip["precond_rank"],
+                                                           ip["precond_power"]),
+                            precond_from_sketch(*sketch, rho)), ("none", None)):
+        (xs, info), seconds = _host_s(lambda: cg_batched(
+            lambda V: blocked.gram_matmat(V) + rho * V, B, tol=1e-6, maxiter=500,
+            precond=precond))
+        err = _rel(xs, x_ref)
+        print(f"  CG (tol 1e-6, maxiter 500, preconditioner {label}) on C = G + {rho:g} I "
+              f"(lambda_max {lam_max:.4g}, kappa {(lam_max + rho) / rho:.4g}): "
+              f"{info.iterations} iterations, residual {info.rel_residual:.2e}, "
+              f"{seconds:.3f} s; rel error vs float64 Cholesky {err:.2e} (f32 Cholesky "
+              f"{_rel(x_f32, x_ref):.2e}); sketch {sketch_s:.3f} s", flush=True)
+        if precond is not None and not (info.iterations < 500 and err <= 1e-3):
+            raise AssertionError(f"preconditioned CG: {info.iterations} iterations, "
+                                 f"error {err:.2e}")
+
+
+def _warm_matfree_step(state, Z, X, alpha, beta, gamma, ip, reps: int = 1) -> dict:
+    """Host seconds of the parts of a warm matfree Z step (device
+    synchronised), median of ``reps`` after one warm-up: the Nystrom sketch,
+    the Hutch++ trace term (its CG solves), the SLQ log-det, the backward
+    (its CG solves); every solve's iterations; the peak memory above what
+    was allocated before."""
+    from laplace_inducing_points_tpu_torch.ops import stochtrace as st
+    from laplace_inducing_points_tpu_torch.training import inducing as ind
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    knobs = {key: ip[key] for key in ("cg_tol", "cg_maxiter", "cg_example_block")}
+    names = ("sketch", "trace", "slq", "backward")
+    parts = {key: [] for key in names}
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sketch, sk_s = _host_s(lambda: ind.matfree_sketch(
+            state, Z, ip["precond_rank"], gen, ip["precond_power"], ip["cg_example_block"]))
+        probes = st.rademacher_probes(gen, ip["st_samples"], state.spec.num_params)
+        z = Z.detach().requires_grad_()
+        with _cg_solves() as solves:
+            trace, tr_s = _host_s(lambda: ind.matfree_trace_term(
+                z, X, state, alpha, beta, gamma, probes, sketch=sketch, **knobs))
+            n_fwd = len(solves)
+            logdet, slq_s = _host_s(lambda: ind.matfree_logdet_term(
+                z, state, alpha, beta, probes[:ip["slq_samples"]], ip["slq_num_matvecs"]))
+            (grad,), bwd_s = _host_s(lambda: torch.autograd.grad(trace + logdet, z))
+        for key, val in zip(names, (sk_s, tr_s, slq_s, bwd_s)):
+            parts[key].append(val)
+        if not torch.isfinite(grad).all():
+            raise AssertionError("matfree dL/dZ not finite")
+        del trace, logdet, grad, z
+    split = {key: statistics.median(vals[1:]) for key, vals in parts.items()}
+    split.update(peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+                 base_gib=base / 2**30, forward_solves=solves[:n_fwd],
+                 backward_solves=solves[n_fwd:])
+    return split
+
+
+def _print_matfree_split(label: str, split: dict, smi: str) -> None:
+    total = sum(split[k] for k in ("sketch", "trace", "slq", "backward"))
+    print(f"{label} warm matfree Z step split (host clock, synchronised; {smi}): sketch "
+          f"{split['sketch']:.3f} s, Hutch++ trace term with its CG solves "
+          f"{split['trace']:.3f} s, SLQ log-det {split['slq']:.3f} s, backward (its CG "
+          f"solves and the recomputed Krylov steps) {split['backward']:.3f} s; total "
+          f"{total:.3f} s; peak memory {split['peak_gib']:.2f} GiB above the "
+          f"{split['base_gib']:.2f} GiB allocated before", flush=True)
+    print(f"  CG solves, forward: {_solves_line(split['forward_solves'])}; backward: "
+          f"{_solves_line(split['backward_solves'])}", flush=True)
+
+
+def phase_matfree_path(workdir: Path, smi: str) -> dict:
+    """lenet5_mnist_matfree1k.yml through the port's entry points as shipped
+    but for ip.epochs 60 -> 3: ``cli.train_scale.main full_pipeline`` (12 MAP
+    epochs, the alpha grid search on the matfree predictive, 3 matfree Z
+    steps, the healthchecks) and ``cli.evaluate.main --predictive matfree``
+    on 2 test batches, twice (two generators). B4 and its backward must have
+    been launched. Then a warm Z step's split, the sketch build cold and
+    warm, and one serving batch."""
+    label = "matfree1k"
+    print(f"== phase 18: {label} as shipped (cli.train_scale.main full_pipeline, then "
+          f"cli.evaluate.main --predictive matfree)", flush=True)
+    from laplace_inducing_points_tpu_torch.cli import evaluate, train_scale
+    from laplace_inducing_points_tpu_torch.data.scale import get_dataloaders
+    from laplace_inducing_points_tpu_torch.inference.lla import ScalableLLAPredictor
+    from laplace_inducing_points_tpu_torch.utils.checkpoint import load_array
+    from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
+    cut = _cut_config(workdir, MATFREE[label], {60: 3}, f"{label}_steps_cut.yml")
+    cfg = load_experiment_config(cut)
+    opt, ip, sampling = cfg["optimization"], cfg["optimization"]["ip"], cfg["sampling"]
+    print(f"config {MATFREE[label]} with ip.epochs 60 -> {ip['epochs']}; as shipped: "
+          f"map.epochs {opt['map']['epochs']}, M={ip['m']}, ip.batch_size={ip['batch_size']}, "
+          f"st_samples={ip['st_samples']}, slq {ip['slq_samples']} x {ip['slq_num_matvecs']}, "
+          f"cg_tol={ip['cg_tol']}, cg_maxiter={ip['cg_maxiter']}, precond "
+          f"{ip['precond_rank']} (power {ip['precond_power']}), cg_example_block="
+          f"{ip['cg_example_block']}; sampling cg_tol={sampling['cg_tol']}, cg_maxiter="
+          f"{sampling['cg_maxiter']}; S={ip['mc_samples']}; alpha from the grid search")
+    dirs = {key: str(workdir / f"{label}_{key}") for key in ("map", "ind", "data")}
+    common = ["--dataset", "mnist", "--config", cut, "--device", "cuda", "--ckpt_map",
+              dirs["map"], "--ckpt_induc", dirs["ind"], "--data_dir", dirs["data"]]
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with _cg_solves() as solves:
+        result, train_s = _host_s(lambda: train_scale.main(
+            ["full_pipeline", "--train_log", str(workdir / f"{label}_log.jsonl"), *common]))
+    run_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    records = evaluate.main(["--scalable", "--predictive", "matfree", "--iters", "2",
+                             "--max_batches", "2", *common])
+    launches = _read_counts()
+    print(f"launches during the {label} CLI path: {json.dumps(launches)}")
+    for name in ("ggn_sweep", "ggn_sweep_backward"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the {label} path")
+    if "inducing" not in result:
+        raise AssertionError(f"{label}: the Z training diverged at its first step")
+    map_stats, ind, alpha = result["map"], result["inducing"], result["alpha"]
+    losses = [r["loss"] for r in ind["rows"]]
+    if len(losses) != ip["epochs"] or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"Z-step losses: {losses}")
+    if not (result["Z_moved"] > 0.0):
+        raise AssertionError("Z did not move")
+    for rec in records:
+        for key in ("nll", "acc", "brier", "ece", "cg_rel_residual"):
+            if not math.isfinite(rec[key]):
+                raise AssertionError(f"matfree evaluation: {key}={rec[key]}")
+    for a, nll in alpha["grid"]:
+        print(f"  grid point alpha={a:.6g}: validation NLL {nll:.6f} (matfree predictive)")
+    if len(alpha["grid"]) != 11 or not all(math.isfinite(v) for _, v in alpha["grid"]):
+        raise AssertionError(f"grid-search NLLs: {alpha['grid']}")
+    hc = result["healthcheck_post"]
+    print(f"alpha_ip = {alpha['alpha_ip']:.6g} ({alpha['alpha_src']}); whole training run "
+          f"{train_s:.2f} s, peak memory {run_peak:.2f} GiB above the {base / 2**30:.2f} GiB "
+          f"allocated before ({smi})")
+    print(f"MAP: {map_stats['steps']} steps, first {map_stats['first_step_s']:.4f} s, warm "
+          f"median {map_stats['s_per_step']:.5f} s per step; loss "
+          f"{map_stats['loss_first']:.4f} -> {map_stats['loss_last']:.4f}")
+    print(f"Z: {ind['steps']} matfree steps, first {ind['first_step_seconds']:.3f} s, warm "
+          f"median {ind['seconds_per_step']:.3f} s per step ({smi}); losses "
+          f"{', '.join(f'{v:.8g}' for v in losses)}; max |Z - Z0| = {result['Z_moved']:.4g}")
+    print(f"healthcheck at the trained Z: residual {hc['cg_rel_residual']:.2e} after "
+          f"{hc['cg_iterations']} iterations ({'converged' if hc['converged'] else 'STALLED'}), "
+          f"lam_max {hc['lam_max']:.5g}, kappa {hc['kappa']:.5g}, kappa deflated "
+          f"{hc['kappa_deflated']:.5g} (sketch {hc['kappa_deflated_sketch']:.5g}), predicted "
+          f"iterations {hc['predicted_iters']:.1f}")
+    print(f"CG solves of the whole training run (grid search, healthchecks, Z steps): "
+          f"{len(solves)}, iterations {[k for _, k, _ in solves]}")
+    for rec in records:
+        print(f"evaluation iteration {rec['iter']}: sketch build {rec['factor_s']:.3f} s, "
+              f"{rec['batches']} batches in {rec['wallclock_s']:.3f} s "
+              f"({rec['per_batch_s']:.3f} s per batch; {smi}); worst CG residual "
+              f"{rec['cg_rel_residual']:.2e}; nll={rec['nll']:.5f} acc={rec['acc']:.5f} "
+              f"brier={rec['brier']:.5f} ece={rec['ece']:.5f}")
+    state = _scale_state(cfg["model"], "mnist", dirs["map"])
+    Z = torch.as_tensor(load_array(dirs["ind"], "ind_mnist", ip["epochs"])).cuda()
+    ip_loader, test_loader, _ = get_dataloaders("mnist", ip["batch_size"], aug=False,
+                                                root=dirs["data"])
+    X = torch.as_tensor(next(iter(ip_loader))[0]).cuda()
+    N = opt["full_set_size"]
+    beta, gamma = N / Z.shape[0], N / X.shape[0]
+    split = _warm_matfree_step(state, Z, X, alpha["alpha_ip"], beta, gamma, ip)
+    _print_matfree_split(label, split, smi)
+    knobs = {key: sampling[key] for key in ("cg_tol", "cg_maxiter", "precond_rank",
+                                            "precond_power", "cg_example_block")}
+    _, test_loader, _ = get_dataloaders("mnist", opt["map"]["batch_size"], aug=False,
+                                        root=dirs["data"])
+    x = torch.as_tensor(next(iter(test_loader))[0]).cuda()
+    with torch.no_grad():
+        builds = [_host_s(lambda: ScalableLLAPredictor(state, Z, full_set_size=N,
+                                                       method="matfree", **knobs))
+                  for _ in range(2)]
+        pred = builds[-1][0]
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+        batches = [_host_s(lambda: pred.logit_samples(x, alpha["alpha_ip"], gen,
+                                                      ip["mc_samples"])) for _ in range(3)]
+    print(f"{label} sketch build (the matfree factor): first in phase 18's evaluate "
+          f"{records[0]['factor_s']:.3f} s, here {builds[0][1]:.3f} s, warm {builds[1][1]:.3f} s;"
+          f" one serving batch {tuple(batches[-1][0].shape)}, warm "
+          f"{statistics.median(s for _, s in batches[1:]):.3f} s (first {batches[0][1]:.3f} s), "
+          f"worst CG residual {pred.last_cg_residual:.2e} ({smi})", flush=True)
+    return {"launches": launches, "state": state, "Z": Z, "X": X, "alpha": alpha["alpha_ip"],
+            "beta": beta, "gamma": gamma, "N": N, "ip": ip, "sampling": sampling,
+            "records": records, "common": common, "dirs": dirs, "x_test": x,
+            "z_init_dir": dirs["ind"]}
+
+
+def _materialized_grad(mf: dict, probes):
+    from laplace_inducing_points_tpu_torch.training import inducing as ind
+    ip = mf["ip"]
+    return ind.kl_value_and_grad_stochastic(
+        mf["Z"], mf["X"], mf["state"], mf["alpha"], probes, full_set_size=mf["N"],
+        st_samples=ip["st_samples"], slq_samples=ip["slq_samples"],
+        slq_num_matvecs=ip["slq_num_matvecs"])
+
+
+def _cos(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().ravel(), b.double().ravel()
+    return float(torch.dot(a, b) / (torch.linalg.norm(a) * torch.linalg.norm(b)))
+
+
+def phase_acceptance(mf: dict, smi: str) -> None:
+    """The JAX package's open acceptance checks on phase 18's MAP and Z
+    (M = 1,024): (a) dL/dZ of the matfree objective against the
+    materialized one on the same probes over precond_rank x cg_maxiter,
+    gated at the shipped knobs against the materialized gradient's spread
+    over probe draws (and the cosine of the draws' mean with the exact gram
+    dL/dZ of the batch, printed); (b) 20 matfree Z steps on 20 batches
+    (2,560 images) from phase 18's Z, against 20 materialized steps on the
+    same probes and 20 gram steps: each one's change of the exact gram KL
+    of those images beside the standard deviation of the stochastic
+    estimate over 8 probe draws at the start (printed); gated: the matfree
+    and the materialized steps change it alike, within that sd; (c) trap
+    C1: the
+    healthcheck residual with cuDNN's TF32 on and off, same right-hand
+    sides (printed, not gated)."""
+    print("== phase 19: the acceptance checks of the matfree objective (M = 1,024)",
+          flush=True)
+    from laplace_inducing_points_tpu_torch.data.loader import cycling_batches
+    from laplace_inducing_points_tpu_torch.data.scale import get_dataloaders
+    from laplace_inducing_points_tpu_torch.ops import stochtrace as st
+    from laplace_inducing_points_tpu_torch.training import inducing as ind
+    state, Z, ip, D = mf["state"], mf["Z"], mf["ip"], mf["state"].spec.num_params
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    probes = st.rademacher_probes(gen, ip["st_samples"], D)
+    (v_mat, g_mat), mat_s = _host_s(lambda: _materialized_grad(mf, probes))
+    draws = [_materialized_grad(mf, st.rademacher_probes(gen, ip["st_samples"], D))[1]
+             for _ in range(SPREAD_DRAWS)]
+    mean = sum(draws) / len(draws)
+    spread = math.sqrt(sum(float(torch.sum((g - mean) ** 2)) for g in draws) / len(draws)) \
+        / float(torch.linalg.norm(mean))
+    _, g_gram = ind.kl_value_and_grad_gram(Z, mf["X"], state, mf["alpha"],
+                                           full_set_size=mf["N"])
+    print(f"  (a) materialized KL {float(v_mat):.8g}, dL/dZ in {mat_s:.3f} s; relative spread "
+          f"of dL/dZ over {SPREAD_DRAWS} probe draws (RMS) {spread:.4f}; cosine of their mean "
+          f"with the exact gram dL/dZ of the batch {_cos(mean, g_gram):.4f} (one draw's "
+          f"{_cos(draws[0], g_gram):.4f})", flush=True)
+    sketches = {r: ind.matfree_sketch(state, Z, r, gen, ip["precond_power"],
+                                      ip["cg_example_block"]) for r in CONTRACT_RANKS if r}
+    # the SLQ log-det term does not depend on the CG knobs: its value and
+    # dL/dZ once, the trace term's at each knob setting
+    z = Z.detach().requires_grad_()
+    logdet = ind.matfree_logdet_term(z, state, mf["alpha"], mf["beta"],
+                                     probes[:ip["slq_samples"]], ip["slq_num_matvecs"])
+    (g_logdet,) = torch.autograd.grad(logdet, z)
+    logdet = logdet.detach()
+
+    def matfree_grad(rank, maxiter):
+        z = Z.detach().requires_grad_()
+        trace = ind.matfree_trace_term(
+            z, mf["X"], state, mf["alpha"], mf["beta"], mf["gamma"], probes,
+            cg_tol=ip["cg_tol"], cg_maxiter=maxiter, sketch=sketches.get(rank),
+            cg_example_block=ip["cg_example_block"])
+        (g_trace,) = torch.autograd.grad(trace, z)
+        return trace.detach() + logdet, g_trace + g_logdet
+
+    gate = None
+    for rank in CONTRACT_RANKS:
+        for maxiter in CONTRACT_MAXITERS:
+            with _cg_solves() as solves:
+                (v, g), s = _host_s(lambda: matfree_grad(rank, maxiter))
+            rel, cos = _rel(g, g_mat), _cos(g, g_mat)
+            print(f"  (a) precond_rank {rank:2d}, cg_maxiter {maxiter:3d}: KL {float(v):.8g} "
+                  f"(rel {abs(float(v - v_mat)) / abs(float(v_mat)):.2e}), dL/dZ rel-L2 "
+                  f"{rel:.4e}, cosine {cos:.6f}; trace term and its dL/dZ {s:.2f} s "
+                  f"({smi}); solve iterations {[k for _, k, _ in solves]}", flush=True)
+            if rank == ip["precond_rank"] and maxiter == ip["cg_maxiter"]:
+                gate = rel
+    if not gate < spread:
+        raise AssertionError(f"matfree dL/dZ at the shipped knobs {gate:.4e} from the "
+                             f"materialized one, not below the spread {spread:.4e}")
+    print(f"  (a) gate at rank {ip['precond_rank']}, maxiter {ip['cg_maxiter']}, tol "
+          f"{ip['cg_tol']}: rel-L2 {gate:.4e} < spread {spread:.4e}", flush=True)
+
+    ip_loader, _, _ = get_dataloaders("mnist", ip["batch_size"], aug=False,
+                                      root=mf["dirs"]["data"])
+    batches = [b for _, b in zip(range(DESCENT_STEPS), cycling_batches(ip_loader))]
+    X_sub = torch.cat([torch.as_tensor(x) for x, _ in batches]).cuda()
+    knobs = {key: ip[key] for key in ("cg_tol", "cg_maxiter", "precond_rank",
+                                      "precond_power", "cg_example_block")}
+
+    with torch.no_grad():
+        kl0, kl_s = _host_s(lambda: ind.kl_objective_gram(Z, X_sub, state, mf["alpha"],
+                                                          full_set_size=mf["N"]))
+        # the stochastic estimate's spread over probe draws, through the
+        # materialized objective: the same estimator, whose value (a) holds
+        # within 1e-5 of the matfree one, at a fifth of its time
+        estimates = [float(ind.kl_objective_stochastic(
+            Z, mf["X"], state, mf["alpha"], gen, full_set_size=mf["N"],
+            st_samples=ip["st_samples"], slq_samples=ip["slq_samples"],
+            slq_num_matvecs=ip["slq_num_matvecs"])) for _ in range(DESCENT_DRAWS)]
+    sd = statistics.stdev(estimates)
+    probes = [st.rademacher_probes(gen, ip["st_samples"], D) for _ in range(DESCENT_STEPS)]
+    sketch_gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+
+    def steps(objective: str):
+        """DESCENT_STEPS Adam steps from phase 18's Z on the batches, the
+        stochastic objectives on the same probes; returns (Z, the exact KL's
+        change, seconds)."""
+        Zs = Z.detach().clone()
+        opt = ind.make_optimizer(Zs, ip["lr"])
+
+        def run():
+            for (x, _), p in zip(batches, probes):
+                extra = {}
+                if objective == "stochastic_matfree":
+                    extra = dict(knobs, precond_sketch=ind.matfree_sketch(
+                        state, Zs, ip["precond_rank"], sketch_gen, ip["precond_power"],
+                        ip["cg_example_block"]))
+                ind.optimize_step(Zs, torch.as_tensor(x).cuda(), state, mf["alpha"], opt,
+                                  objective=objective, full_set_size=mf["N"], probes=p,
+                                  st_samples=ip["st_samples"], slq_samples=ip["slq_samples"],
+                                  slq_num_matvecs=ip["slq_num_matvecs"], **extra)
+
+        _, seconds = _host_s(run)
+        with torch.no_grad():
+            kl1 = ind.kl_objective_gram(Zs, X_sub, state, mf["alpha"], full_set_size=mf["N"])
+        return Zs, float(kl1 - kl0), seconds
+
+    out = {name: steps(name) for name in ("stochastic_matfree", "stochastic", "gram")}
+    print(f"  (b) exact gram KL of the {X_sub.shape[0]} training images of {DESCENT_STEPS} "
+          f"batches at phase 18's Z: {float(kl0):.8g} ({kl_s:.2f} s); the stochastic "
+          f"estimate there over {DESCENT_DRAWS} probe draws: mean "
+          f"{statistics.mean(estimates):.8g}, sd {sd:.6g}", flush=True)
+    for name, (Zs, change, seconds) in out.items():
+        print(f"  (b) {DESCENT_STEPS} {name} steps (lr {ip['lr']}, the same batches"
+              f"{'' if name == 'gram' else ' and probes'}; {seconds:.1f} s, {smi}): exact KL "
+              f"change {change:+.6g} ({'a drop beyond' if -change > sd else 'NOT a drop beyond'}"
+              f" the sd {sd:.6g}); max |Z - Z0| {float(torch.max(torch.abs(Zs - Z))):.4g}",
+              flush=True)
+    (Z_free, d_free, _), (Z_mat, d_mat, _) = out["stochastic_matfree"], out["stochastic"]
+    apart = float(torch.linalg.norm(Z_free - Z_mat) / torch.linalg.norm(Z_mat - Z))
+    print(f"  (b) matfree vs materialized trajectory: |Z_free - Z_mat| / |Z_mat - Z0| "
+          f"{apart:.4f}; exact KL changes {d_free:+.6g} vs {d_mat:+.6g}", flush=True)
+    # the gate: the matfree trainer does what the materialized one does, to
+    # within the estimate's value-noise band (whether either descends is the
+    # estimator's signal at these knobs, printed above)
+    if not abs(d_free - d_mat) <= sd:
+        raise AssertionError(f"the matfree steps moved the exact KL by {d_free:+.6g}, the "
+                             f"materialized ones by {d_mat:+.6g}: apart by more than the sd "
+                             f"{sd:.6g}")
+
+    res = {}
+    old = torch.backends.cudnn.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            hc = ind.matfree_cg_healthcheck(
+                state, Z, mf["alpha"], full_set_size=mf["N"],
+                generator=torch.Generator(device="cuda").manual_seed(SEED + 22), warn=False,
+                **knobs)
+            res[tf32] = hc
+            print(f"  (c) trap C1, cudnn.allow_tf32={tf32}: healthcheck residual "
+                  f"{hc['cg_rel_residual']:.3e} after {hc['cg_iterations']} iterations, "
+                  f"lam_max {hc['lam_max']:.5g}, kappa deflated {hc['kappa_deflated']:.5g}",
+                  flush=True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    print(f"  (c) the residual with TF32 convolutions / without: "
+          f"{res[True]['cg_rel_residual'] / res[False]['cg_rel_residual']:.3g}x (printed, "
+          f"not gated)", flush=True)
+
+
+def phase_predictive_agreement(mf: dict, smi: str) -> dict:
+    """The matfree Matheron sampler against the materialized one on the same
+    eps and eta (tight CG: relative error <= 1e-3; the shipped knobs:
+    printed), and the metrics of ``--predictive matfree`` (phase 18) against
+    ``--predictive weight`` (exact, --range_clip 0) on the same checkpoint
+    and batches: the gap within max(3x the gap of two weight runs with other
+    generators, 1e-3). Returns the launch counts since phase 18 began: every
+    kernel of MATFREE_KERNELS must have been launched."""
+    print("== phase 20: matfree against the weight predictive (M = 1,024)", flush=True)
+    from laplace_inducing_points_tpu_torch.cli import evaluate
+    from laplace_inducing_points_tpu_torch.inference.sample import make_matheron_sampler
+    state, Z, alpha, N, sampling = mf["state"], mf["Z"], mf["alpha"], mf["N"], mf["sampling"]
+    S, D = mf["ip"]["mc_samples"], state.spec.num_params
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    eps = torch.randn(S, D, generator=gen, device="cuda")
+    eta = torch.randn(S, Z.shape[0] * 10, generator=gen, device="cuda")
+    with torch.no_grad():
+        (apply_mat, _), mat_s = _host_s(lambda: make_matheron_sampler(state, Z, alpha, N))
+        ref, res_mat = apply_mat(eps, eta, with_info=True)
+        for tol, maxiter, gated in ((1e-6, 500, True),
+                                    (sampling["cg_tol"], sampling["cg_maxiter"], False)):
+            (apply_free, _), build_s = _host_s(lambda: make_matheron_sampler(
+                state, Z, alpha, N, materialize_w=False, cg_tol=tol, cg_maxiter=maxiter,
+                precond_rank=sampling["precond_rank"], precond_power=sampling["precond_power"],
+                cg_example_block=sampling["cg_example_block"]))
+            (draws, res), draw_s = _host_s(lambda: apply_free(eps, eta, with_info=True))
+            err = _rel(draws, ref)
+            print(f"  Matheron draws ({S}, {D}), matfree cg_tol {tol:g} maxiter {maxiter} "
+                  f"(build {build_s:.3f} s, draws {draw_s:.3f} s, residual {float(res):.2e}) "
+                  f"vs materialized (build {mat_s:.3f} s, Cholesky residual "
+                  f"{float(res_mat):.2e}): rel error {err:.3e}", flush=True)
+            if gated and not err <= 1e-3:
+                raise AssertionError(f"matfree Matheron draws {err:.3e} from materialized")
+    weight = evaluate.main(["--scalable", "--predictive", "weight", "--range_clip", "0",
+                            "--iters", "2", "--max_batches", "2", *mf["common"]])
+    free = mf["records"]
+    for key in ("nll", "acc"):
+        gap = abs(free[0][key] - weight[0][key])
+        noise = abs(weight[1][key] - weight[0][key])
+        limit = max(3 * noise, 1e-3)
+        print(f"  {key}: matfree {free[0][key]:.6f} (second generator {free[1][key]:.6f}), "
+              f"weight {weight[0][key]:.6f} (second generator {weight[1][key]:.6f}); gap "
+              f"{gap:.3e}, limit max(3 x {noise:.3e}, 1e-3) = {limit:.3e}", flush=True)
+        if not gap <= limit:
+            raise AssertionError(f"{key}: matfree vs weight gap {gap:.3e} > {limit:.3e}")
+    print(f"  serving per batch: weight {weight[1]['per_batch_s']:.4f} s (factor "
+          f"{weight[0]['factor_s']:.3f} s), matfree {free[1]['per_batch_s']:.4f} s (sketch "
+          f"{free[0]['factor_s']:.3f} s) ({smi})", flush=True)
+    launches = _read_counts()
+    print(f"launches during the matfree1k path (phases 18-20): {json.dumps(launches)}")
+    for name in MATFREE_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the matfree1k path")
+    return launches
+
+
+def _matfree_kernels(d_z: int, D: int, S: int, mf: dict) -> dict:
+    """Each kernel at the matfree1k path's shapes, by phase 3's rules, timed:
+    B1 at Rz (d_z, D) (the materialized sampler, twin and exact KL), B2 and
+    B3 at the materialized Matheron draws (S rows), B4 forward and dV at the
+    matfree objective's sweeps (P = 12 and 4 against Rx)."""
+    from laplace_inducing_points_tpu_torch.ops.cuda.matmul import (matmul_nn,
+                                                                   matmul_nn_plain,
+                                                                   matmul_nt,
+                                                                   matmul_nt_plain)
+    from laplace_inducing_points_tpu_torch.ops.cuda.sweep import ggn_sweep, ggn_sweep_plain
+    from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk, syrk_plain
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    Rz = randn(d_z, D)
+    rows = {"syrk": _check_kernel("syrk", syrk, syrk_plain, (Rz,), timed=True),
+            "matmul_nt": _check_path("matmul_nt", "tiled", matmul_nt, matmul_nt_plain,
+                                     (randn(S, D), Rz), True),
+            "matmul_nn": _check_path("matmul_nn", "tiled", matmul_nn, matmul_nn_plain,
+                                     (randn(S, d_z), Rz), True)}
+    del Rz
+    torch.cuda.empty_cache()
+    d_x, scale = mf["X"].shape[0] * 10, mf["gamma"]
+    R = randn(d_x, D)
+    for P in (12, 4):
+        V, ct = randn(P, D), randn(P, D)
+        v = V.clone().requires_grad_()
+        out = ggn_sweep(v, R, scale)
+        ref = ggn_sweep_plain(V.double(), R.double(), scale)
+        dv_ref = ggn_sweep_plain(ct.double(), R.double(), scale)
+        (dv,) = torch.autograd.grad(out, v, ct, retain_graph=True)
+        fwd_err = _rel(out, ref)
+        lib_err = _rel(_library_sweep(V, R, scale), ref)
+        print(f"  ggn_sweep P={P} R {(d_x, D)} scale {scale}: rel vs f64 {fwd_err:.3e} "
+              f"(cuBLAS TF32 {lib_err:.3e}), dV {_rel(dv, dv_ref):.3e}", flush=True)
+        if not fwd_err <= F64_RATIO * lib_err:
+            raise AssertionError(f"ggn_sweep P={P}: {fwd_err:.3e} > {F64_RATIO} x {lib_err:.3e}")
+        work = _sweep_work(P, d_x, D)
+        for name, call, plain, lib, err in (
+                ("ggn_sweep", lambda: ggn_sweep(V, R, scale),
+                 lambda: ggn_sweep_plain(V, R, scale), lambda: _library_sweep(V, R, scale),
+                 float((out - ggn_sweep_plain(V, R, scale)).abs().max())),
+                ("ggn_sweep_backward",
+                 lambda: torch.autograd.grad(out, v, ct, retain_graph=True),
+                 lambda: ggn_sweep_plain(ct, R, scale), lambda: _library_sweep(ct, R, scale),
+                 float((dv - ggn_sweep_plain(ct, R, scale)).abs().max()))):
+            row = {"max_abs_err": err, "ms": cuda_ms(call), "plain_ms": cuda_ms(plain),
+                   "library_ms": cuda_ms(lib), **work}
+            print(f"  {name:18s} P={P}: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                  f"library_ms (cuBLAS TF32)={row['library_ms']:.4f} bound_ms="
+                  f"{row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+            rows[name if P == 12 else f"{name}.P{P}"] = row
+        del V, ct, v, out, ref, dv_ref, dv
+    del R
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_matfree4k(workdir: Path, mf: dict, smi: str) -> None:
+    """lenet5_mnist_matfree4k.yml (M = 4,096, d_z = 40,960) on phase 18's MAP
+    (the configs share their model and map blocks): one matfree Z step through
+    ``cli.train_scale.main train_inducing --alpha_ip 50`` (its header's alpha;
+    ip.epochs 150 -> 1) and one ``cli.evaluate.main --predictive matfree``
+    batch, timed with their peak memory; the matfree KL against the
+    materialized stochastic KL on the same probes (Rz 10.1 GB, the Gram
+    6.7 GB)."""
+    label = "matfree4k"
+    print(f"== phase 21: {label} (M = 4,096): one Z step and one serving batch", flush=True)
+    from laplace_inducing_points_tpu_torch.cli import evaluate, train_scale
+    from laplace_inducing_points_tpu_torch.ops import stochtrace as st
+    from laplace_inducing_points_tpu_torch.training import inducing as ind
+    from laplace_inducing_points_tpu_torch.utils.checkpoint import load_array
+    from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
+    cut = _cut_config(workdir, MATFREE[label], {150: 1}, f"{label}_steps_cut.yml")
+    cfg = load_experiment_config(cut)
+    opt, ip = cfg["optimization"], cfg["optimization"]["ip"]
+    ind_dir = str(workdir / f"{label}_ind")
+    common = ["--dataset", "mnist", "--config", cut, "--device", "cuda", "--ckpt_map",
+              mf["dirs"]["map"], "--ckpt_induc", ind_dir, "--data_dir", mf["dirs"]["data"]]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with _cg_solves() as solves:
+        result, train_s = _host_s(lambda: train_scale.main(
+            ["train_inducing", "--alpha_ip", str(ALPHA_4K), "--train_log",
+             str(workdir / f"{label}_log.jsonl"), *common]))
+    train_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    ind_stats, hc = result["inducing"], result["healthcheck_post"]
+    if not all(math.isfinite(r["loss"]) for r in ind_stats["rows"]):
+        raise AssertionError(f"{label} Z-step loss: {ind_stats['rows']}")
+    print(f"{label}: M={ip['m']}, one matfree Z step {ind_stats['first_step_seconds']:.2f} s "
+          f"(loss {ind_stats['rows'][0]['loss']:.8g}); whole run with both healthchecks "
+          f"{train_s:.1f} s; peak memory {train_peak:.2f} GiB above the {base / 2**30:.2f} "
+          f"GiB allocated before ({smi}); solve iterations {[k for _, k, _ in solves]}")
+    print(f"{label} healthcheck at the stepped Z: residual {hc['cg_rel_residual']:.2e} after "
+          f"{hc['cg_iterations']} iterations, lam_max {hc['lam_max']:.5g}, kappa "
+          f"{hc['kappa']:.5g}, kappa deflated {hc['kappa_deflated']:.5g}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    records = evaluate.main(["--scalable", "--predictive", "matfree", "--iters", "1",
+                             "--max_batches", "1", *common])
+    eval_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    rec = records[0]
+    for key in ("nll", "acc", "cg_rel_residual"):
+        if not math.isfinite(rec[key]):
+            raise AssertionError(f"{label} evaluation: {key}={rec[key]}")
+    print(f"{label} evaluate --predictive matfree: sketch build {rec['factor_s']:.2f} s, one "
+          f"batch {rec['per_batch_s']:.2f} s, worst CG residual {rec['cg_rel_residual']:.2e}, "
+          f"peak memory {eval_peak:.2f} GiB ({smi}); nll={rec['nll']:.5f} acc={rec['acc']:.5f}",
+          flush=True)
+    state = mf["state"]
+    Z = torch.as_tensor(load_array(ind_dir, "ind_mnist", ip["epochs"])).cuda()
+    X, N = mf["X"], opt["full_set_size"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    probes = st.rademacher_probes(gen, ip["st_samples"], state.spec.num_params)
+    knobs = dict(full_set_size=N, st_samples=ip["st_samples"], slq_samples=ip["slq_samples"],
+                 slq_num_matvecs=ip["slq_num_matvecs"])
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        v_free, free_s = _host_s(lambda: ind.kl_objective_stochastic(
+            Z, X, state, ALPHA_4K, probes, materialize_w=False, cg_tol=ip["cg_tol"],
+            cg_maxiter=ip["cg_maxiter"], precond_rank=ip["precond_rank"],
+            precond_power=ip["precond_power"], precond_sketch=None,
+            cg_example_block=ip["cg_example_block"], **knobs))
+        free_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        v_mat, mat_s = _host_s(lambda: ind.kl_objective_stochastic(
+            Z, X, state, ALPHA_4K, probes, **knobs))
+        mat_peak = torch.cuda.max_memory_allocated() / 2**30
+    rel = abs(float(v_free - v_mat)) / abs(float(v_mat))
+    print(f"{label} KL on the same probes: matfree {float(v_free):.8g} ({free_s:.2f} s, peak "
+          f"{free_peak:.2f} GiB), materialized {float(v_mat):.8g} ({mat_s:.2f} s, peak "
+          f"{mat_peak:.2f} GiB; {smi}); rel {rel:.3e}", flush=True)
+    if not rel <= 1e-3:
+        raise AssertionError(f"{label}: matfree KL {rel:.3e} from the materialized one")
+
+
+def run_matfree(workdir: Path, smi: str, phases) -> dict:
+    """Phases 17-21 (those of ``phases``; 19-21 need 18)."""
+    out = {}
+    if 17 in phases:
+        phase_operators(workdir)
+    if 18 not in phases:
+        return out
+    mf = phase_matfree_path(workdir, smi)
+    if 19 in phases:
+        phase_acceptance(mf, smi)
+    if 20 in phases:
+        out["launches"] = phase_predictive_agreement(mf, smi)
+        out["rows"] = _matfree_kernels(mf["Z"].shape[0] * 10, mf["state"].spec.num_params,
+                                       mf["ip"]["mc_samples"], mf)
+    if 21 in phases:
+        phase_matfree4k(workdir, mf, smi)
+    return out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Drive the port on one CUDA GPU.")
+    parser.add_argument("--phases", default=None,
+                        help="comma-separated phases among 17-21 to run after phases 1-2 "
+                             "(19-21 need 18); such a partial run prints no result")
+    args = parser.parse_args(argv)
     smi = phase_environment()
     phase_build()
+    if args.phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            run_matfree(Path(tmp), smi, {int(p) for p in args.phases.split(",")})
+        print("partial run: no result")
+        return 0
     kernel_rows = phase_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         launches, _ = phase_main_path(Path(tmp))
@@ -1546,6 +2285,9 @@ def main() -> int:
         phase_scale_timings(resnet, "resnet1m_cifar10")
         phase_gradient_agreement(resnet, "phase 16")
         scale["resnet1m_cifar10"] = resnet
+        del resnet["state"], resnet["Z"], resnet["X"]
+        torch.cuda.empty_cache()
+        matfree = run_matfree(Path(tmp), smi, {17, 18, 19, 20, 21})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
               "replaces": KERNELS[name][1], "launches": launches[name],
@@ -1585,6 +2327,17 @@ def main() -> int:
                    "launches": scale[label]["launches"][name],
                    **{k: rows[name][k] for k in keys}}
                   for name in SCALE_KERNELS]
+    # the matfree slice (phases 18-20): the four kernels and B4's backward timed
+    # at that path's shapes (B4 at the P = 12 range-finder sweep), launches
+    # from phases 18-20
+    table += [{"name": f"{name}@matfree1k", "route": "cuda",
+               "source": (KERNELS[name][0] if name in KERNELS else
+                          "laplace_inducing_points_tpu_torch/csrc/ggn_sweep.cu"),
+               "replaces": (KERNELS[name][1] if name in KERNELS else
+                            "laplace_inducing_points_tpu/ops/pallas/matmul.py:213"),
+               "launches": matfree["launches"][name],
+               **{k: matfree["rows"][name][k] for k in keys}}
+              for name in MATFREE_KERNELS]
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

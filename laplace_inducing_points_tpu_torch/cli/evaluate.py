@@ -1,13 +1,15 @@
 """Evaluation CLI: NLL / ACC / Brier / ECE (+ OOD AUROC) with timing.
 
 Counterpart of ``laplace_inducing_points_tpu/cli/evaluate.py`` for the
-scalable weight-space predictive (``--scalable --predictive weight``): loads
-MAP weights (``{ckpt_map}/map_{dataset}.pt``, see
+scalable predictives (``--scalable --predictive weight`` and ``matfree``):
+loads MAP weights (``{ckpt_map}/map_{dataset}.pt``, see
 ``utils.checkpoint.save_params``) and the inducing points
 (``{ckpt_induc}/ind_{dataset}_{epochs}.npz``), builds the posterior factor
-once, and runs timed evaluation repetitions and an optional OOD pass. The
-``cov``/``matfree`` predictives, the dense predictive and the toy datasets
-are not ported yet (ROADMAP, Queue A).
+(the matfree path: its Nyström sketch) once, and runs timed evaluation
+repetitions and an optional OOD pass. The matfree knobs come from the flags,
+else the config's ``sampling.cg_*``/``precond_*``. The ``cov`` predictive,
+the dense predictive and the toy datasets are not ported yet (ROADMAP,
+Queue A).
 
 Usage:
     python -m laplace_inducing_points_tpu_torch.cli.evaluate \
@@ -60,8 +62,27 @@ def build_parser():
                         "sampling.sample_block")
     p.add_argument("--predictive", choices=["weight", "cov", "matfree"],
                    default=None,
-                   help="scalable predictive path; only 'weight' is ported. "
-                        "Default: config sampling.predictive")
+                   help="scalable predictive path: 'weight' pushes each draw of "
+                        "the eigh factor through a jvp; 'matfree' draws Matheron "
+                        "samples by Nystrom-preconditioned CG, no d_z x D factor "
+                        "and no eigh (an exact sampler: --range_clip is ignored); "
+                        "'cov' is not ported. Default: config sampling.predictive")
+    p.add_argument("--cg_tol", type=float, default=None,
+                   help="matfree predictive: CG tolerance (default config "
+                        "sampling.cg_tol, 1e-4)")
+    p.add_argument("--cg_maxiter", type=int, default=None,
+                   help="matfree predictive: CG iteration cap (default "
+                        "sampling.cg_maxiter, else 10*d_z)")
+    p.add_argument("--precond_power", type=int, default=None,
+                   help="matfree predictive: Nystrom sketch subspace-iteration "
+                        "passes (default config sampling.precond_power, 0)")
+    p.add_argument("--precond_rank", type=int, default=None,
+                   help="matfree predictive: Nystrom deflation rank, 0 disables "
+                        "(default config sampling.precond_rank, 64)")
+    p.add_argument("--cg_example_block", type=int, default=None,
+                   help="matfree predictive: run the CG operator's jvp/vjp in "
+                        "example blocks of this size (bounds the live "
+                        "activations; default config sampling.cg_example_block)")
     p.add_argument("--mesh", action="store_true",
                    help="not ported (ROADMAP, Queue A)")
     p.add_argument("--iters", type=int, default=3)
@@ -83,6 +104,19 @@ class _Limited:
 
     def __iter__(self):
         return itertools.islice(iter(self.loader), self.n)
+
+
+def matfree_knobs(sampling_cfg: dict, args=None) -> dict:
+    """The matfree predictive's knobs: the config's ``sampling`` entries, each
+    overridden by its flag in ``args`` when given (``precond_rank`` 0
+    disables the preconditioner)."""
+    knobs = {}
+    for key in ("cg_tol", "cg_maxiter", "precond_rank", "precond_power",
+                "cg_example_block"):
+        flag = getattr(args, key, None)
+        knobs[key] = flag if flag is not None else sampling_cfg[key]
+    knobs["precond_rank"] = knobs["precond_rank"] or None
+    return knobs
 
 
 def _sync(device: torch.device) -> None:
@@ -108,7 +142,7 @@ def main(argv=None) -> list[dict]:
     ip_cfg = opt_cfg["ip"]
     sampling_cfg = cfg["sampling"]
     predictive = args.predictive or sampling_cfg["predictive"]
-    if predictive != "weight":
+    if predictive == "cov":
         raise NotImplementedError(f"predictive {predictive!r} is not ported yet "
                                   "(ROADMAP, Queue A)")
     # alpha precedence: CLI flag > pipeline-recorded alpha > config
@@ -148,17 +182,26 @@ def main(argv=None) -> list[dict]:
     range_clip = args.range_clip if args.range_clip > 0 else None
     sample_block = (args.sample_block if args.sample_block is not None
                     else sampling_cfg["sample_block"])
+    matfree = {}
+    if predictive == "matfree":
+        matfree = matfree_knobs(sampling_cfg, args)
+        print(f"[predictor] predictive method: matfree {matfree}")
+        if range_clip is not None:
+            print("[predictor] NOTE: the matfree path's Matheron sampler is exact: "
+                  "--range_clip is ignored")
     with torch.no_grad():
         t0 = time.perf_counter()
         predictor = ScalableLLAPredictor(state, Z, full_set_size=full_set_size,
                                          example_block=ip_cfg["example_block"],
                                          range_clip_min=range_clip,
                                          sample_block=sample_block,
-                                         method=predictive)
+                                         method=predictive, **matfree)
         _sync(device)
         factor_s = time.perf_counter() - t0
     print(f"[predictor] posterior factor built in {factor_s:.3f} s "
-          f"(M={Z.shape[0]}, d={predictor.R.shape[0]}, D={predictor.R.shape[1]})")
+          f"(M={Z.shape[0]}, d={predictor.d}, D={state.spec.num_params}"
+          + (f", Nystrom rank {predictor.nys[0].shape[1]}" if matfree and predictor.nys
+             else "") + ")")
 
     n_batches = len(test_loader)
     if args.max_batches:
@@ -182,6 +225,8 @@ def main(argv=None) -> list[dict]:
                   "device": str(device), "factor_s": factor_s,
                   "wallclock_s": dt, "batches": n_batches,
                   "per_batch_s": dt / n_batches}
+        if predictive == "matfree":
+            record["cg_rel_residual"] = predictor.last_cg_residual
         if "acc" in rec:
             print(f"\nTest NLL   : {rec['nll']:8.5f}"
                   f"\nTest Acc   : {rec['acc'] * 100:8.3f} %"

@@ -8,16 +8,20 @@ evidence maximization during the MAP (``--alpha_mode evidence``,
 ``training.alpha.train_map_then_alpha``) or from the validation-NLL grid
 search on the initial Z (``training.grid_search.grid_search_alpha``: log₁₀ α
 from 1 to 3, 8 coarse points and one refinement, on the config's
-predictive), Z training with the ``gram`` or ``stochastic`` objective (the
-stochastic one with the config's ``ip.st_samples``, ``ip.slq_samples``,
-``ip.slq_num_matvecs`` and probes seeded from ``ip.seed``), the
-``--train_log`` rows and summary, and the checkpoints that ``cli.evaluate``
-reads (the MAP weights and statistics as ``{ckpt_map}/map_{dataset}.pt``, Z
-as ``{ckpt_induc}/ind_{dataset}_{epochs}.npz`` with the run's meta beside
-it: the α and where it came from, ``cli``, ``evidence`` or ``grid``).
-``--continue``, ``--profile``, the ``dense``, ``gram_chunked`` and
-``stochastic_matfree`` objectives and a mesh are not ported yet and raise
-(ROADMAP, Queue A).
+predictive; the matfree one with the config's ``sampling.cg_*`` and
+``precond_*``), Z training with the ``gram``, ``stochastic`` or
+``stochastic_matfree`` objective (the stochastic ones with the config's
+``ip.st_samples``, ``ip.slq_samples``, ``ip.slq_num_matvecs`` and probes
+seeded from ``ip.seed``; the matfree one also with ``ip.cg_tol``,
+``ip.cg_maxiter``, ``ip.precond_rank``, ``ip.precond_power`` and
+``ip.cg_example_block``, and a CG healthcheck on the trained Z printed and
+kept in the ``--train_log`` summary), the ``--train_log`` rows and summary,
+and the checkpoints that ``cli.evaluate`` reads (the MAP weights and
+statistics as ``{ckpt_map}/map_{dataset}.pt``, Z as
+``{ckpt_induc}/ind_{dataset}_{epochs}.npz`` with the run's meta beside it:
+the α and where it came from, ``cli``, ``evidence`` or ``grid``).
+``--continue``, ``--profile``, the ``dense`` and ``gram_chunked`` objectives
+and a mesh are not ported yet and raise (ROADMAP, Queue A).
 
 The MAP weights start from a seeded numpy lecun-normal init in the JAX layout
 (``core.params.lecun_normal_params`` of ``model.seed``; BatchNorm scale one,
@@ -38,6 +42,7 @@ import time
 
 import torch
 
+from laplace_inducing_points_tpu_torch.cli.evaluate import matfree_knobs
 from laplace_inducing_points_tpu_torch.core.params import (FlatSpec, lecun_normal_params,
                                                            params_from_jax)
 from laplace_inducing_points_tpu_torch.data.loader import cycling_batches
@@ -47,6 +52,8 @@ from laplace_inducing_points_tpu_torch.models.state import ModelState
 from laplace_inducing_points_tpu_torch.training.alpha import train_map_then_alpha
 from laplace_inducing_points_tpu_torch.training.grid_search import grid_search_alpha
 from laplace_inducing_points_tpu_torch.training.inducing import (OBJECTIVES,
+                                                                 healthcheck_line,
+                                                                 matfree_cg_healthcheck,
                                                                  train_inducing_points)
 from laplace_inducing_points_tpu_torch.training.map import cosine_lr, train_map
 from laplace_inducing_points_tpu_torch.utils.checkpoint import (load_batch_stats, load_params,
@@ -76,8 +83,8 @@ def build_parser():
     p.add_argument("--objective", default=None,
                    choices=["dense", "gram", "gram_chunked", "stochastic",
                             "stochastic_matfree"],
-                   help="'gram' and 'stochastic' are ported; default: config "
-                        "ip.objective")
+                   help="'gram', 'stochastic' and 'stochastic_matfree' are ported; "
+                        "default: config ip.objective")
     p.add_argument("--ckpt_map", default="checkpoint/map/")
     p.add_argument("--ckpt_induc", default="checkpoint/ind/")
     p.add_argument("--data_dir", default="data/")
@@ -225,12 +232,14 @@ def main(argv=None) -> dict:
     grid = []
     if alpha_ip is None:
         sampling_cfg = cfg["sampling"]
+        predictive = sampling_cfg["predictive"]
+        knobs = matfree_knobs(sampling_cfg) if predictive == "matfree" else {}
         alpha_ip = grid_search_alpha(
             state, z_init, val_loader, full_set_size=full_set_size,
             num_mc_samples=ip_cfg["mc_samples"], log10_min=1.0, log10_max=3.0,
             n_coarse=8, range_clip_min=args.range_clip if args.range_clip > 0 else None,
-            predictive=sampling_cfg["predictive"], example_block=ip_cfg["example_block"],
-            sample_block=sampling_cfg["sample_block"], history=grid)
+            predictive=predictive, example_block=ip_cfg["example_block"],
+            sample_block=sampling_cfg["sample_block"], history=grid, **knobs)
         alpha_src = "grid"
     result["alpha"] = {"alpha_ip": float(alpha_ip), "alpha_src": alpha_src, "grid": grid}
     objective = args.objective or ip_cfg["objective"]
@@ -248,6 +257,8 @@ def main(argv=None) -> dict:
             with open(args.train_log, "a" if step else "w") as f:
                 f.write(json.dumps(row) + "\n")
 
+    cg = {key: ip_cfg[key] for key in ("cg_tol", "cg_maxiter", "precond_rank",
+                                       "precond_power", "cg_example_block")}
     Z = train_inducing_points(state, z_init, cycling_batches(ip_loader), alpha=alpha_ip,
                               num_steps=ip_cfg["epochs"], lr=ip_cfg["lr"],
                               full_set_size=full_set_size, objective=objective,
@@ -255,7 +266,16 @@ def main(argv=None) -> dict:
                               generator=torch.Generator(device=device).manual_seed(ip_cfg["seed"]),
                               st_samples=ip_cfg["st_samples"],
                               slq_samples=ip_cfg["slq_samples"],
-                              slq_num_matvecs=ip_cfg["slq_num_matvecs"], callback=callback)
+                              slq_num_matvecs=ip_cfg["slq_num_matvecs"], callback=callback,
+                              **cg)
+    healthcheck = None
+    if objective == "stochastic_matfree":
+        # the inner solve's convergence at the trained Z
+        healthcheck = matfree_cg_healthcheck(state, Z, alpha_ip, full_set_size=full_set_size,
+                                             warn=False, **cg)
+        result["healthcheck_post"] = healthcheck
+        print(f"[inducing] matfree CG healthcheck at the trained Z: "
+              f"{healthcheck_line(healthcheck)}")
     if rows:
         losses = [r["loss"] for r in rows]
         summary = {"op": "kl_training_run", "objective": objective, "M": int(m),
@@ -264,6 +284,14 @@ def main(argv=None) -> dict:
                    "loss_first": losses[0], "loss_last": losses[-1],
                    "loss_min": min(losses), "alpha_ip": float(alpha_ip),
                    "device": str(device)}
+        if healthcheck is not None:
+            summary.update({key: ip_cfg[key] for key in cg})
+            summary.update(cg_rel_residual_post=healthcheck["cg_rel_residual"],
+                           cg_converged_post=healthcheck["converged"],
+                           cg_iterations_post=healthcheck["cg_iterations"],
+                           kappa_post=healthcheck["kappa"],
+                           kappa_deflated_post=healthcheck["kappa_deflated"],
+                           predicted_iters_post=healthcheck["predicted_iters"])
         with open(args.train_log, "a") as f:
             f.write(json.dumps(summary) + "\n")
         print(f"[train_log] wrote {len(rows)} step rows + summary -> {args.train_log}")

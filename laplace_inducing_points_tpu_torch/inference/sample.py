@@ -4,9 +4,10 @@ Counterpart of ``laplace_inducing_points_tpu/inference/sample.py``:
 ``_g_weights`` (``:41``), ``inv_matsqrt_gram`` (``:64``),
 ``apply_inv_matsqrt_rows`` (``:73``), the materialized branch of
 ``make_inv_matsqrt`` (``:87-115``), ``make_inv_matsqrt_lanczos`` (``:314``),
-``inv_matsqrt_dense`` (``:357``) and ``sample`` (``:370``) for ``gram_eigh``,
-``lanczos`` and ``dense``. The matrix-free branch and the Matheron sampler
-wait for later slices (ROADMAP, Queue A).
+``_batch_rel_residual`` (``:134``), ``make_matheron_sampler`` (``:155-311``)
+both ways, ``inv_matsqrt_dense`` (``:357``) and ``sample`` (``:370``) for
+``gram_eigh``, ``lanczos``, ``dense`` and ``matheron``. The matrix-free
+branch of ``make_inv_matsqrt`` waits for a later slice (ROADMAP, Queue A).
 
 Draws ``δθ ~ N(0, S⁻¹)`` with ``S = αI + β W Wᵀ`` by applying ``S^{-1/2}`` to
 standard normal noise. With ``G = WᵀW = V Λ Vᵀ`` (``d×d``, d = M·K):
@@ -16,7 +17,9 @@ standard normal noise. With ``G = WᵀW = V Λ Vᵀ`` (``d×d``, d = M·K):
 
 With the rows ``R = Wᵀ (d, D)`` materialized, the two long contractions are
 ``ε Rᵀ`` (the ``matmul_nt`` kernel) and ``(·) R`` (``matmul_nn``), and the
-Gram is ``syrk(R)``.
+Gram is ``syrk(R)``. The Matheron sampler needs no square root: a Cholesky
+of ``C = βG + αI`` with the rows, or CG against the matrix-free Gram
+without them.
 """
 
 from __future__ import annotations
@@ -28,6 +31,9 @@ import torch
 
 from laplace_inducing_points_tpu_torch.core import operators as ops
 from laplace_inducing_points_tpu_torch.ops import lanczos as lz
+from laplace_inducing_points_tpu_torch.ops.cg import cg_batched
+from laplace_inducing_points_tpu_torch.ops.nystrom import (nystrom_preconditioner,
+                                                           sketch_probe_block)
 from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nn, matmul_nt
 from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk
 
@@ -126,6 +132,97 @@ def make_inv_matsqrt_lanczos(state, Z: torch.Tensor, alpha: float,
     return apply
 
 
+def _batch_rel_residual(CX: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """Worst relative solve residual over a batch: ``max_p ‖C x_p − u_p‖ / ‖u_p‖``."""
+    num = torch.linalg.norm(CX - U, dim=-1)
+    return torch.max(num / torch.clamp(torch.linalg.norm(U, dim=-1), min=1e-30))
+
+
+def make_matheron_sampler(state, Z: torch.Tensor, alpha: float,
+                          full_set_size: Optional[int] = None,
+                          example_block: Optional[int] = None,
+                          materialize_w: bool = True,
+                          cg_tol: float = 1e-4, cg_maxiter: Optional[int] = None,
+                          precond_rank: Optional[int] = 64, precond_power: int = 0,
+                          precond_omega=None,
+                          cg_example_block: Optional[int] = None):
+    """Exact posterior draws without a matrix square root (Matheron's rule).
+
+    For ``S = αI + β W Wᵀ`` and ``C = βG + αI`` (``G = WᵀW``),
+
+        θ = α^{-1/2} (ε − √β·W C⁻¹ (√β·Wᵀ ε + √α η)),  ε ~ N(0, I_D), η ~ N(0, I_d),
+
+    has covariance exactly ``S⁻¹`` (Woodbury). ``C`` is positive definite for
+    every α > 0, rank-deficient ``G`` included.
+
+    ``materialize_w=True``: the rows ``R`` (``example_block`` chunks them),
+    ``G = syrk(R)`` and a Cholesky of ``C`` (pivot-jittered); each draw batch
+    is ``ε Rᵀ`` through ``matmul_nt``, a triangular solve pair and ``(·) R``
+    through ``matmul_nn``, true FP32. ``materialize_w=False``: nothing of size
+    ``d × D`` or ``d × d``; ``C⁻¹`` is a batched CG (``cg_tol``,
+    ``cg_maxiter``, default ``10·d``) against the matrix-free Gram (over
+    example blocks of ``cg_example_block``), preconditioned by a rank
+    ``precond_rank`` Nyström sketch (``precond_power`` passes) built once
+    here from ``precond_omega`` (a ``(d, k)`` start or a generator; default
+    a generator seeded ``0x4E59``).
+
+    Returns ``(apply, d)``: ``apply(eps (P, D), eta (P, d))`` gives the draws,
+    ``apply(..., with_info=True)`` ``(draws, worst relative residual of the
+    solve)``; a CG residual ≫ ``cg_tol`` means maxiter exits.
+    """
+    from laplace_inducing_points_tpu_torch.training.inducing import _cholesky, _pivot_jitter
+
+    M = Z.shape[0]
+    beta = (full_set_size or M) / M
+    sqrt_alpha, sqrt_beta = math.sqrt(alpha), math.sqrt(beta)
+
+    if materialize_w:
+        R = ops.dense_wt(state, Z, example_block=example_block)   # (d, D)
+        d = R.shape[0]
+        eye = torch.eye(d, dtype=R.dtype, device=R.device)
+        C = beta * syrk(R) + alpha * eye
+        L = _cholesky(ops.ensure_symmetry(C, jitter=0.0) + _pivot_jitter(C) * eye)
+
+        def apply(eps: torch.Tensor, eta: torch.Tensor, with_info: bool = False):
+            U = sqrt_beta * matmul_nt(eps, R) + sqrt_alpha * eta           # (P, d)
+            X = torch.cholesky_solve(U.T, L).T.contiguous()                # (P, d)
+            draws = (eps - sqrt_beta * matmul_nn(X, R)) / sqrt_alpha
+            if with_info:
+                return draws, _batch_rel_residual(X @ (L @ L.T).T, U)
+            return draws
+
+        return apply, d
+
+    w = ops.cg_factor(state, Z, cg_example_block)
+    M_, K_ = w.inner_shape
+    d = M_ * K_
+    precond = None
+    if precond_rank:
+        # depends only on (state, Z, alpha, beta): built once, not per draw batch
+        blk = sketch_probe_block(M_, precond_rank)
+        omega = (precond_omega if precond_omega is not None else
+                 torch.Generator(device=Z.device).manual_seed(0x4E59))
+        precond = nystrom_preconditioner(lambda V: beta * w.gram_matmat(V, block=blk), d,
+                                         precond_rank, alpha, omega, power=precond_power)
+
+    def apply(eps: torch.Tensor, eta: torch.Tensor, with_info: bool = False):
+        P = eps.shape[0]
+        U = sqrt_beta * w.t_matmat(eps).reshape(P, d) + sqrt_alpha * eta
+        cgblk = sketch_probe_block(M_, P)
+
+        def c_matmat(Xm: torch.Tensor) -> torch.Tensor:
+            return beta * w.gram_matmat(Xm, block=cgblk) + alpha * Xm
+
+        X, _ = cg_batched(c_matmat, U, tol=cg_tol, maxiter=cg_maxiter or 10 * d,
+                          precond=precond)
+        draws = (eps - sqrt_beta * w.matmat(X.reshape(P, M_, K_))) / sqrt_alpha
+        if with_info:
+            return draws, _batch_rel_residual(c_matmat(X), U)
+        return draws
+
+    return apply, d
+
+
 def inv_matsqrt_dense(state, Z: torch.Tensor, alpha: float,
                       full_set_size: Optional[int] = None) -> torch.Tensor:
     """Dense ``D×D`` twin for tests (small models only)."""
@@ -142,10 +239,16 @@ def sample(state, Z: torch.Tensor, alpha: float, generator: torch.Generator, *,
            num_samples: int = 1, full_set_size: Optional[int] = None,
            method: str = "gram_eigh", **kwargs) -> torch.Tensor:
     """Draw ``(num_samples, D)`` zero-mean posterior weight perturbations;
-    the noise comes from ``generator`` (on the state's device)."""
+    the noise comes from ``generator`` (on the state's device): ``ε`` and, for
+    ``matheron``, then ``η (num_samples, d)``."""
     D = state.flat_params.shape[0]
     eps = torch.randn(num_samples, D, generator=generator,
                       device=state.device, dtype=torch.float32)
+    if method == "matheron":
+        apply2, d = make_matheron_sampler(state, Z, alpha, full_set_size, **kwargs)
+        eta = torch.randn(num_samples, d, generator=generator, device=state.device,
+                          dtype=torch.float32)
+        return apply2(eps, eta)
     if method == "gram_eigh":
         apply = make_inv_matsqrt(state, Z, alpha, full_set_size, **kwargs)
     elif method == "lanczos":
@@ -153,9 +256,6 @@ def sample(state, Z: torch.Tensor, alpha: float, generator: torch.Generator, *,
     elif method == "dense":
         mat = inv_matsqrt_dense(state, Z, alpha, full_set_size)
         apply = lambda E: ops.pdot(E, mat.T)
-    elif method == "matheron":
-        raise NotImplementedError(f"sampling method {method!r} is not ported yet "
-                                  "(ROADMAP, Queue A)")
     else:
         raise ValueError(f"unknown sampling method: {method}")
     return apply(eps)

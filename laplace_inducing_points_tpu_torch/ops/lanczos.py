@@ -10,16 +10,19 @@ inside ``lax.scan``. Here the basis is a Python list, and each step stacks the
 prefix it reorthogonalizes against: an in-place write into a tensor autograd
 has saved would raise, and a copy of the whole basis per step would keep k
 copies of it. The stacked prefixes autograd keeps add up to ``k²/2`` vectors,
-as many as the reference's scan saves. The reference's ``remat_body`` (the
-matfree path's recompute of each step) comes with the matfree slice.
+as many as the reference's scan saves. ``golub_kahan_bidiag(remat_body=True)``
+(the matfree log-det) recomputes each step in the backward pass
+(``torch.utils.checkpoint``) instead of keeping its operator's activations.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.func import vjp
+from torch.utils.checkpoint import checkpoint
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
 
@@ -104,32 +107,56 @@ class Bidiag(NamedTuple):
     right: torch.Tensor     # (k, D) right Golub-Kahan vectors
 
 
+def _gk_step(matvec: MatVec, t_matvec: MatVec, reorthogonalize: bool,
+             v: torch.Tensor, u_prev: Optional[torch.Tensor],
+             beta_prev: Optional[torch.Tensor], *basis: torch.Tensor):
+    """One Golub–Kahan step: ``(alpha_i, beta_i, u_i, v_{i+1})``."""
+    # u_i alpha_i = G v_i - beta_{i-1} u_{i-1}
+    w = matvec(v) if u_prev is None else matvec(v) - beta_prev * u_prev
+    alpha = _safe_norm(w)
+    u = w / (alpha + _EPS)
+    # v_{i+1} beta_i = Gᵀ u_i - alpha_i v_i
+    z = t_matvec(u) - alpha * v
+    if reorthogonalize:
+        z = _reorthogonalize([*basis, v], z)
+    beta = _safe_norm(z)
+    return alpha, beta, u, z / (beta + _EPS)
+
+
 def golub_kahan_bidiag(matvec: MatVec, v0: torch.Tensor, num_matvecs: int,
                        t_matvec: Optional[MatVec] = None,
-                       reorthogonalize: bool = True) -> Bidiag:
+                       reorthogonalize: bool = True,
+                       remat_body: bool = False) -> Bidiag:
     """Golub–Kahan bidiagonalization of a rectangular linear operator ``G``:
     upper-bidiagonal ``B`` with ``GᵀG ≈ V BᵀB Vᵀ`` on the Krylov space of
     ``(GᵀG, v0)``. Without ``t_matvec`` the adjoint is the vjp of ``matvec``
-    at ``v0`` (``G`` must be linear)."""
+    at ``v0`` (``G`` must be linear).
+
+    ``remat_body``: run each step under ``torch.utils.checkpoint``
+    (non-reentrant), so the backward pass recomputes the step's operator
+    applications instead of keeping their activations: for a matrix-free
+    ``W`` at ``M`` points those are ``num_matvecs × M`` examples' activations.
+    Values and gradients are the same; the backward runs one more matvec
+    pair per step. The operator must then not use ``torch.func.vjp`` (it
+    refuses checkpoint's saved-tensor hooks): the matrix-free factors'
+    ``matvec`` is ``torch.autograd.grad``.
+    """
     if t_matvec is None:
         _, pull = vjp(matvec, v0)
         t_matvec = lambda u: pull(u)[0]    # noqa: E731
 
+    step = functools.partial(_gk_step, matvec, t_matvec, reorthogonalize)
     v = v0 / _safe_norm(v0)
     u_prev, beta_prev = None, None
     basis, alphas, betas = [], [], []
     for _ in range(num_matvecs):
-        # u_i alpha_i = G v_i - beta_{i-1} u_{i-1}
-        w = matvec(v) if u_prev is None else matvec(v) - beta_prev * u_prev
-        alpha = _safe_norm(w)
-        u = w / (alpha + _EPS)
-        # v_{i+1} beta_i = Gᵀ u_i - alpha_i v_i
-        z = t_matvec(u) - alpha * v
-        if reorthogonalize:
-            z = _reorthogonalize(basis + [v], z)
-        beta = _safe_norm(z)
+        args = (v, u_prev, beta_prev, *(basis if reorthogonalize else ()))
+        if remat_body:
+            alpha, beta, u, v_next = checkpoint(step, *args, use_reentrant=False)
+        else:
+            alpha, beta, u, v_next = step(*args)
         basis.append(v)
-        v, u_prev, beta_prev = z / (beta + _EPS), u, beta
+        v, u_prev, beta_prev = v_next, u, beta
         alphas.append(alpha)
         betas.append(beta)
     return Bidiag(alphas=torch.stack(alphas), betas=torch.stack(betas)[:-1],

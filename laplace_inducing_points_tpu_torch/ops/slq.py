@@ -4,8 +4,9 @@ Counterpart of ``laplace_inducing_points_tpu/ops/slq.py:20-80``, the SLQ
 log-det terms of the inducing-point KL objective on the Krylov layer of
 ``ops/lanczos.py``. The reference vmaps the probes; here they run one after
 another, each a Krylov loop of ``num_matvecs`` operator applications and a
-small dense factorization. The reference's ``remat`` has no counterpart
-(eager autograd; see ``ops/stochtrace.py``).
+small dense factorization. The reference's per-probe ``remat`` has no
+counterpart (eager autograd; see ``ops/stochtrace.py``); its ``remat_body``
+passes through to ``golub_kahan_bidiag``.
 """
 
 from __future__ import annotations
@@ -41,13 +42,16 @@ def slq_logdet_sym(matvec: Callable[[torch.Tensor], torch.Tensor], probes: torch
 
 def slq_logdet_product(matvec: Callable[[torch.Tensor], torch.Tensor],
                        probes: torch.Tensor, num_matvecs: int,
-                       t_matvec: Optional[Callable] = None) -> torch.Tensor:
+                       t_matvec: Optional[Callable] = None,
+                       remat_body: bool = False) -> torch.Tensor:
     """``logdet(GᵀG)`` by Golub–Kahan SLQ: per probe,
     ``vᵀ log(GᵀG) v ≈ ‖v‖² · Σᵢ w₁ᵢ² · 2 log σᵢ`` with ``σ`` and the weights
     ``w₁ = Vᵀe₁`` from the SVD of the small bidiagonal ``B`` (sturdier than
-    forming ``BᵀB``)."""
+    forming ``BᵀB``). ``remat_body``: recompute each Krylov step in the
+    backward pass (``lanczos.golub_kahan_bidiag``)."""
     def single(v):
-        bi = lz.golub_kahan_bidiag(matvec, v, num_matvecs, t_matvec=t_matvec)
+        bi = lz.golub_kahan_bidiag(matvec, v, num_matvecs, t_matvec=t_matvec,
+                                   remat_body=remat_body)
         B = lz.bidiag_dense(bi.alphas, bi.betas)
         d = torch.diagonal(B)
         B = B + torch.diag(_graded_jitter(d) * (d + 1e-12))

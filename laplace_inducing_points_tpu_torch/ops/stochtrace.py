@@ -10,7 +10,8 @@ Probes come from a ``torch.Generator``; they cannot reproduce ``jax.random``'s
 bits, so the twin tests hand both packages the same probe array. The
 reference's ``remat`` of each operator application has no counterpart: eager
 autograd keeps only the operands each product saves, (P, D) tensors.
-``trace_of_inverse`` needs the batched CG of the matfree slice and raises.
+``trace_of_inverse`` composes an estimator with the batched CG of
+``ops/cg.py``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Callable, Optional
 import torch
 
 from laplace_inducing_points_tpu_torch.core.operators import pdot
+from laplace_inducing_points_tpu_torch.ops.cg import cg_batched
 
 MatMat = Callable[[torch.Tensor], torch.Tensor]
 
@@ -84,8 +86,23 @@ def na_hutchpp(matmat: MatMat, probes: torch.Tensor) -> torch.Tensor:
     return t1 + (t2 - t3) / G.shape[0]
 
 
-def trace_of_inverse(matmat: MatMat, probes: torch.Tensor, **kwargs) -> torch.Tensor:
-    """``tr(A⁻¹)`` by an estimator over batched CG solves: needs ``ops/cg.py``,
-    which comes with the matfree slice."""
-    raise NotImplementedError("trace_of_inverse needs the batched CG of the matfree "
-                              "slice, not ported yet (ROADMAP, Queue A)")
+def trace_of_inverse(matmat: MatMat, probes: torch.Tensor, *, cg_tol: float = 1e-6,
+                     cg_maxiter: Optional[int] = None, estimator: str = "hutchpp",
+                     operator_inputs=()) -> torch.Tensor:
+    """``tr(A⁻¹)`` by an estimator over batched CG solves (``ops/cg.py``).
+
+    ``matmat`` is the operator of the inner CG, so it must be true f32 (the
+    f32 policy). ``operator_inputs``: the tensors ``A`` depends on that need
+    gradients (``cg_batched``).
+    """
+    def inv_matmat(V: torch.Tensor) -> torch.Tensor:
+        return cg_batched(matmat, V, tol=cg_tol, maxiter=cg_maxiter,
+                          operator_inputs=operator_inputs)[0]
+
+    if estimator == "hutchpp":
+        return hutchpp(inv_matmat, probes)
+    if estimator == "hutchinson":
+        return hutchinson(inv_matmat, probes)
+    if estimator == "na_hutchpp":
+        return na_hutchpp(inv_matmat, probes)
+    raise ValueError(f"unknown estimator: {estimator}")

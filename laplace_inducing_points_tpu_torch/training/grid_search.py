@@ -28,20 +28,23 @@ def grid_search_alpha(state, Z0: torch.Tensor, val_loader: Iterable, *,
                       predictive: str = "weight",
                       example_block: Optional[int] = None,
                       sample_block: Optional[int] = None,
-                      history: Optional[list] = None) -> float:
+                      history: Optional[list] = None, **predictor_kwargs) -> float:
     """Return the α minimizing the validation NLL of the IP-LLA predictive
     over ``n_coarse`` log-spaced points and three more between the best one's
     neighbours.
 
-    ``example_block`` chunks the predictor's row build and ``sample_block``
-    its push-forward; both keep the values. ``history``, if given, receives
-    every ``(alpha, nll)`` in the order evaluated.
+    ``predictive``: ``"weight"`` or ``"matfree"`` (its knobs, ``cg_tol`` and
+    the rest, in ``predictor_kwargs``; the Nyström sketch is α-independent
+    and built once). ``example_block`` chunks the predictor's row build and
+    ``sample_block`` its push-forward; both keep the values. ``history``, if
+    given, receives every ``(alpha, nll)`` in the order evaluated.
     """
     with torch.no_grad():
         predictor = ScalableLLAPredictor(state, Z0, full_set_size=full_set_size,
                                          example_block=example_block,
                                          range_clip_min=range_clip_min,
-                                         sample_block=sample_block, method=predictive)
+                                         sample_block=sample_block, method=predictive,
+                                         **predictor_kwargs)
 
     def val_nll(a: float) -> float:
         generator = torch.Generator(device=state.device).manual_seed(rng_key)

@@ -3,11 +3,14 @@
 
 Counterpart of ``laplace_inducing_points_tpu/training/inducing.py``: ``_grams``
 (``:62``), ``_pivot_jitter`` (``:72``), ``_kl_core`` (``:87``),
-``kl_objective_gram`` (``:124``), ``kl_objective_stochastic`` (``:142``) with
-``materialize_w=True``, ``OBJECTIVES`` (``:340``), ``optimize_step`` (``:684``)
-for the ``gram`` and ``stochastic`` objectives, ``full_set_kl`` (``:724``) and
-``train_inducing_points`` (``:795``) with its divergence guard. The dense and
-matfree objectives and the restarts wait for later slices (ROADMAP, Queue A).
+``kl_objective_gram`` (``:124``), ``kl_objective_stochastic`` (``:142``) both
+ways, ``OBJECTIVES`` (``:340``), ``matfree_cg_healthcheck`` (``:472``, one
+function: the reference's staged probes are compile workarounds),
+``optimize_step`` (``:684``) for the ``gram``, ``stochastic`` and
+``stochastic_matfree`` objectives, ``full_set_kl`` (``:724``) and
+``train_inducing_points`` (``:795``) with its divergence guard. The dense
+objective, ``gram_chunked`` and the restarts wait for later slices (ROADMAP,
+Queue A).
 
 The Gram ``Gzz = Rz Rzᵀ`` goes through the ``syrk`` kernel, the long
 products with the rows through ``matmul_nt``/``matmul_nn`` and the stochastic
@@ -21,26 +24,43 @@ from the materialized rows in the same way: the same function as the
 reference's jvp/vjp operators, with ``S_X = γ·RxᵀRx + αI`` applied by the
 sweep kernel. :func:`kl_objective_gram` and :func:`kl_objective_stochastic`
 stay differentiable end to end, as the reference's are.
+
+The matfree objective (``materialize_w=False``) never forms ``Rz`` or the
+``d_z × d_z`` Gram: the Woodbury solve is a batched CG (``ops/cg.py``, its
+gradient implicit) on ``X ↦ Wzᵀ(Wz X) + (α/β)X`` through the matrix-free
+factor (example-blocked with ``cg_example_block``), preconditioned by a
+Nyström sketch built without a graph, and the SLQ log-det runs the stacked
+operator ``[√α v; √β Wzᵀv]`` matrix-free with each Krylov step recomputed in
+the backward pass. ``S_X`` keeps the materialized design: the data batch's
+rows ``Rx`` (``d_x × D``, independent of M) through the ``ggn_sweep``
+kernel. Its ``dL/dZ`` is plain autograd through it all.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, Iterable, Optional, Union
 
 import torch
 
 from laplace_inducing_points_tpu_torch.core import operators as ops
+from laplace_inducing_points_tpu_torch.ops import cg as cg_mod
 from laplace_inducing_points_tpu_torch.ops import slq as slq_mod
 from laplace_inducing_points_tpu_torch.ops import stochtrace as st
+from laplace_inducing_points_tpu_torch.ops.nystrom import (nystrom_sketch,
+                                                           precond_from_sketch,
+                                                           precond_inv_sqrt_from_sketch,
+                                                           sketch_probe_block)
 from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nn, matmul_nt
 from laplace_inducing_points_tpu_torch.ops.cuda.sweep import ggn_sweep
 from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk
 from laplace_inducing_points_tpu_torch.utils.checkpoint import save_array
 
 NOT_PORTED = ("the {!r} objective is not ported yet (ROADMAP, Queue A): "
-              "'gram' and 'stochastic' are")
+              "'gram', 'stochastic' and 'stochastic_matfree' are")
 
 
 def grams_from_rows(Rz: torch.Tensor, Rx: torch.Tensor):
@@ -260,28 +280,140 @@ def _stochastic_setup(Z: torch.Tensor, X: torch.Tensor, state,
     return beta, gamma, probes, slq_num_matvecs or max(int(0.8 * M), 4)
 
 
+def matfree_sketch(state, Z: torch.Tensor, rank: int,
+                   omega: Union[torch.Tensor, torch.Generator], power: int = 0,
+                   cg_example_block: Optional[int] = None):
+    """The Nyström sketch ``(U, lam, good)`` of the unscaled Gram ``WzᵀWz`` at
+    ``Z``, built without a graph through the CG factor, its probes in chunks of
+    ``sketch_probe_block``: the preconditioner of one matfree step."""
+    with torch.no_grad():
+        wz = ops.cg_factor(state, Z.detach(), cg_example_block)
+        blk = sketch_probe_block(wz.inner_shape[0], rank)
+        return nystrom_sketch(lambda V: wz.gram_matmat(V, block=blk), wz.d, rank, omega,
+                              power=power)
+
+
+def matfree_trace_term(Z: torch.Tensor, X: torch.Tensor, state, alpha: float, beta: float,
+                       gamma: float, probes: torch.Tensor, *, cg_tol: float = 1e-3,
+                       cg_maxiter: Optional[int] = None, sketch=None,
+                       cg_example_block: Optional[int] = None,
+                       sweep: Callable = ggn_sweep) -> torch.Tensor:
+    """Hutch++ ``tr(S_X S_z⁻¹)`` with nothing of size ``d_z × D`` or
+    ``d_z × d_z``, differentiable in ``Z``.
+
+    ``S_z⁻¹V = α⁻¹V − α⁻¹·Wz C⁻¹ WzᵀV`` with ``C⁻¹`` a batched CG solve of
+    ``C = WzᵀWz + (α/β)I`` (``ops/cg.py``: every probe of a sweep in one loop,
+    its gradient in ``Z`` implicit) on the factor over example blocks of
+    ``cg_example_block``, preconditioned by ``sketch`` (``None``: plain CG).
+    ``S_X W = γ·(W Rxᵀ) Rx + αW`` through ``sweep`` on the data batch's rows.
+    ``cg_maxiter=None`` is ``10·d_z``.
+    """
+    a_inv = 1.0 / alpha
+    rho = alpha / beta
+    with torch.no_grad():
+        Rx = ops.dense_wt(state, X)                                  # (d_x, D)
+    wz = ops.make_w_factor(state, Z)
+    wz_cg = ops.cg_factor(state, Z, cg_example_block) if cg_example_block else wz
+    Mk, Kk = wz.inner_shape
+    d_z = Mk * Kk
+    maxiter = 10 * d_z if cg_maxiter is None else cg_maxiter
+    precond = None if sketch is None else precond_from_sketch(*sketch, rho)
+
+    def composite(V: torch.Tensor) -> torch.Tensor:
+        P = V.shape[0]
+        cgblk = sketch_probe_block(Mk, P)
+
+        def c_matmat(Xm: torch.Tensor) -> torch.Tensor:
+            return wz_cg.gram_matmat(Xm, block=cgblk) + rho * Xm
+
+        U = wz.t_matmat(V).reshape(P, d_z)
+        Xs, _ = cg_mod.cg_batched(c_matmat, U, tol=cg_tol, maxiter=maxiter,
+                                  precond=precond, operator_inputs=(Z,))
+        W = a_inv * V - a_inv * wz.matmat(Xs.reshape(P, Mk, Kk))
+        return sweep(W.contiguous(), Rx, gamma) + alpha * W
+
+    s1, s2 = probe_split(probes.shape[0])
+    return st.hutchpp(composite, probes, s1=s1, s2=s2)
+
+
+def matfree_logdet_term(Z: torch.Tensor, state, alpha: float, beta: float,
+                        probes: torch.Tensor, slq_num_matvecs: int) -> torch.Tensor:
+    """SLQ ``logdet(αI + β WzWzᵀ)`` on the matrix-free stacked operator
+    ``G v = [√α v; √β Wzᵀv]`` (``GᵀG = S_z``), each Golub–Kahan step
+    recomputed in the backward pass instead of keeping the factor's
+    activations; ``probes`` are the SLQ probes."""
+    wz = ops.make_w_factor(state, Z)
+    Mk, Kk = wz.inner_shape
+    D = wz.num_params
+    sqrt_alpha, sqrt_beta = math.sqrt(alpha), math.sqrt(beta)
+
+    def stacked(v: torch.Tensor) -> torch.Tensor:
+        return torch.cat([sqrt_alpha * v, sqrt_beta * wz.t_matvec(v).reshape(-1)])
+
+    def stacked_t(w: torch.Tensor) -> torch.Tensor:
+        return sqrt_alpha * w[:D] + sqrt_beta * wz.matvec(w[D:].reshape(Mk, Kk))
+
+    return slq_mod.slq_logdet_product(stacked, probes, num_matvecs=slq_num_matvecs,
+                                      t_matvec=stacked_t, remat_body=True)
+
+
+def kl_stochastic_matfree(Z: torch.Tensor, X: torch.Tensor, state, alpha: float,
+                          beta: float, gamma: float, probes: torch.Tensor,
+                          slq_samples: int, slq_num_matvecs: int, **trace_knobs
+                          ) -> torch.Tensor:
+    """The matfree stochastic KL: :func:`matfree_trace_term` on all the probes
+    plus :func:`matfree_logdet_term` on the first ``slq_samples``
+    (``trace_knobs``: the trace term's CG knobs)."""
+    return (matfree_trace_term(Z, X, state, alpha, beta, gamma, probes, **trace_knobs)
+            + matfree_logdet_term(Z, state, alpha, beta, probes[:slq_samples],
+                                  slq_num_matvecs))
+
+
 def kl_objective_stochastic(Z: torch.Tensor, X: torch.Tensor, state, alpha: float,
                             probes: Union[torch.Tensor, torch.Generator],
                             full_set_size: Optional[int] = None,
                             st_samples: int = 256, slq_samples: int = 2,
                             slq_num_matvecs: Optional[int] = None,
                             materialize_w: bool = True,
-                            example_block: Optional[int] = None) -> torch.Tensor:
+                            example_block: Optional[int] = None,
+                            cg_tol: float = 1e-3, cg_maxiter: Optional[int] = None,
+                            precond_rank: Optional[int] = 64, precond_power: int = 0,
+                            precond_sketch=None,
+                            cg_example_block: Optional[int] = None) -> torch.Tensor:
     """Hutch++ trace + SLQ log-det with shared Rademacher probes,
     differentiable in ``Z``.
 
     ``probes``: the ``(st_samples, D)`` probe array, or a ``torch.Generator``
     to draw it from. The Hutch++ split is :func:`probe_split`; the SLQ depth
-    defaults to ``max(int(0.8·M), 4)``. ``materialize_w=False`` (the matfree
-    objective) is not ported yet and raises.
+    defaults to ``max(int(0.8·M), 4)``.
+
+    ``materialize_w=False`` is the matfree objective
+    (:func:`kl_stochastic_matfree`; ``stochastic_matfree`` in
+    :data:`OBJECTIVES`) with the knobs ``cg_tol``, ``cg_maxiter``,
+    ``precond_rank`` (0 or ``None``: no preconditioner), ``precond_power``
+    and ``cg_example_block``. ``precond_sketch``: a prebuilt
+    :func:`matfree_sketch`; without one it is built here, its start drawn
+    after the probes from the generator (or from a generator seeded
+    ``0x4E59`` when the probes are given).
     """
-    if not materialize_w:
-        raise NotImplementedError(NOT_PORTED.format("stochastic_matfree"))
-    beta, gamma, probes, num_matvecs = _stochastic_setup(
+    beta, gamma, probes_t, num_matvecs = _stochastic_setup(
         Z, X, state, probes, full_set_size, st_samples, slq_num_matvecs)
+    if not materialize_w:
+        sketch = None
+        if precond_rank:
+            sketch = precond_sketch
+            if sketch is None:
+                omega = (probes if isinstance(probes, torch.Generator) else
+                         torch.Generator(device=state.device).manual_seed(0x4E59))
+                sketch = matfree_sketch(state, Z, precond_rank, omega, precond_power,
+                                        cg_example_block)
+        return kl_stochastic_matfree(Z, X, state, alpha, beta, gamma, probes_t,
+                                     slq_samples, num_matvecs, cg_tol=cg_tol,
+                                     cg_maxiter=cg_maxiter, sketch=sketch,
+                                     cg_example_block=cg_example_block)
     Rz = ops.dense_wt(state, Z, example_block=example_block)
     Rx = ops.dense_wt(state, X, example_block=example_block)
-    return kl_stochastic_from_rows(Rz, Rx, alpha, beta, gamma, probes, slq_samples,
+    return kl_stochastic_from_rows(Rz, Rx, alpha, beta, gamma, probes_t, slq_samples,
                                    num_matvecs)
 
 
@@ -315,10 +447,127 @@ def kl_value_and_grad_stochastic(Z: torch.Tensor, X: torch.Tensor, state, alpha:
     return loss, ops.dense_wt_pullback(state, Z, ct, example_block=example_block)
 
 
+def kl_value_and_grad_matfree(Z: torch.Tensor, X: torch.Tensor, state, alpha: float,
+                              probes: Union[torch.Tensor, torch.Generator], **kwargs):
+    """``(KL, dKL/dZ)`` of the matfree objective by autograd through it
+    (``kwargs``: :func:`kl_objective_stochastic`'s)."""
+    z = Z.detach().requires_grad_()
+    with torch.enable_grad():
+        loss = kl_objective_stochastic(z, X, state, alpha, probes, materialize_w=False,
+                                       **kwargs)
+        (grad,) = torch.autograd.grad(loss, z)
+    return loss.detach(), grad
+
+
 OBJECTIVES = {
     "gram": kl_objective_gram,
     "stochastic": kl_objective_stochastic,
+    "stochastic_matfree": partial(kl_objective_stochastic, materialize_w=False),
 }
+
+
+# ---------------------------------------------------------------------------
+# matfree CG convergence visibility
+# ---------------------------------------------------------------------------
+
+def _power_top(matvec: Callable[[torch.Tensor], torch.Tensor], v0: torch.Tensor,
+               steps: int = 30) -> float:
+    """Rayleigh quotient after ``steps`` power iterations from ``v0``."""
+    v = v0 / torch.linalg.norm(v0)
+    for _ in range(steps):
+        w = matvec(v)
+        v = w / torch.clamp(torch.linalg.norm(w), min=1e-30)
+    return float(torch.dot(v, matvec(v)) / torch.dot(v, v))
+
+
+@torch.no_grad()
+def matfree_cg_healthcheck(state, Z: torch.Tensor, alpha: float, *,
+                           full_set_size: Optional[int] = None, cg_tol: float = 1e-3,
+                           cg_maxiter: Optional[int] = None,
+                           precond_rank: Optional[int] = 64, precond_power: int = 0,
+                           generator: Optional[torch.Generator] = None,
+                           n_probes: int = 4, cg_example_block: Optional[int] = None,
+                           warn: bool = True) -> dict:
+    """CG convergence visibility for the matfree paths: the objective's inner
+    solve (same operator, preconditioner construction and budget) on
+    ``n_probes`` random right-hand sides.
+
+    Returns the worst true relative residual ``‖C x − b‖ / ‖b‖``
+    (``cg_rel_residual``; ≫ tol means the solves exit on ``maxiter``), the
+    iterations the solve ran, and the conditioning that explains them:
+    ``lam_max`` (30 power iterations on the Gram), ``kappa = (λ_max+ρ)/ρ``
+    with ``ρ = α/β``, the deflated ``kappa_deflated = (λ_seen+ρ)/ρ`` with
+    ``λ_seen`` measured by power iteration on ``P^{-1/2} C P^{-1/2}`` (the
+    spectrum CG sees), the sketch's own claim ``kappa_deflated_sketch`` and
+    the CG bound ``predicted_iters ≈ ½·√κ_defl·ln(2/tol)``. Warns when the
+    residual is above ``max(5·tol, 1e-5)``.
+    """
+    M = Z.shape[0]
+    rho = float(alpha) / ((full_set_size or M) / M)
+    gen = generator or torch.Generator(device=Z.device).manual_seed(0)
+    wz = ops.cg_factor(state, Z.detach(), cg_example_block)
+    d_z = wz.d
+
+    def c_matmat(Xm: torch.Tensor) -> torch.Tensor:
+        return wz.gram_matmat(Xm, block=sketch_probe_block(M, Xm.shape[0])) + rho * Xm
+
+    def c_matvec(u: torch.Tensor) -> torch.Tensor:
+        return c_matmat(u[None])[0]
+
+    lam_max = max(_power_top(c_matvec, torch.randn(d_z, generator=gen, device=Z.device))
+                  - rho, 0.0)
+    precond = None
+    lam_defl = lam_seen = lam_max
+    if precond_rank:
+        U, lam, good = matfree_sketch(state, Z, precond_rank, gen, precond_power,
+                                      cg_example_block)
+        kept = lam[good]
+        if kept.numel():
+            lam_defl = float(torch.min(kept))
+        pis = precond_inv_sqrt_from_sketch(U, lam, good, rho)
+        lam_seen = max(_power_top(lambda u: pis(c_matvec(pis(u))),
+                                  torch.randn(d_z, generator=gen, device=Z.device))
+                       - rho, 0.0)
+        precond = precond_from_sketch(U, lam, good, rho)
+    b = torch.randn(n_probes, d_z, generator=gen, device=Z.device)
+    Xs, info = cg_mod.cg_batched(c_matmat, b, tol=cg_tol, maxiter=cg_maxiter,
+                                 precond=precond)
+    res = float(torch.max(torch.linalg.norm(c_matmat(Xs) - b, dim=-1)
+                          / torch.clamp(torch.linalg.norm(b, dim=-1), min=1e-30)))
+    kappa = (lam_max + rho) / rho
+    lam_eff = max(lam_defl, 1e-5 * lam_max) if precond_rank else lam_max
+    kappa_defl_sketch = (lam_eff + rho) / rho
+    kappa_defl = (lam_seen + rho) / rho
+    predicted_iters = 0.5 * math.sqrt(kappa_defl) * math.log(2.0 / cg_tol)
+    # floored at the f32-attainable residual: a tolerance below round-off
+    # still counts as converged when the solve bottoms out near 1e-6
+    converged = res <= max(5 * cg_tol, 1e-5)
+    if warn and not converged:
+        warnings.warn(
+            f"stochastic_matfree inner CG: relative residual {res:.2e} after "
+            f"{info.iterations} iterations (cg_tol={cg_tol:g}): CG is exiting on "
+            f"maxiter, not tolerance. Conditioning: lam_max={lam_max:.3g}, "
+            f"kappa={kappa:.3g}, measured kappa_deflated={kappa_defl:.3g} (rank "
+            f"{precond_rank}; the sketch claims {kappa_defl_sketch:.3g}); the CG bound "
+            f"needs ~{predicted_iters:.0f} iterations vs the "
+            f"{cg_maxiter or 'default'} budgeted. The KL trace term is biased by "
+            f"O(residual): raise precond_rank or cg_maxiter, or alpha_ip (kappa "
+            f"scales as 1/alpha).", stacklevel=2)
+    return {"cg_rel_residual": res, "converged": converged, "cg_iterations": info.iterations,
+            "cg_tol": cg_tol, "precond_rank": precond_rank, "precond_power": precond_power,
+            "lam_max": lam_max, "kappa": kappa, "lam_seen": lam_seen,
+            "kappa_deflated": kappa_defl, "kappa_deflated_sketch": kappa_defl_sketch,
+            "predicted_iters": predicted_iters}
+
+
+def healthcheck_line(hc: dict) -> str:
+    """One line summarizing a :func:`matfree_cg_healthcheck`."""
+    return (f"rel residual {hc['cg_rel_residual']:.2e} after {hc['cg_iterations']} "
+            f"iterations ({'converged' if hc['converged'] else 'MAXITER STALL'}, "
+            f"tol={hc['cg_tol']:g}, precond_rank={hc['precond_rank']}, "
+            f"lam_max={hc['lam_max']:.4g}, kappa={hc['kappa']:.4g}, "
+            f"kappa_deflated={hc['kappa_deflated']:.4g} (sketch "
+            f"{hc['kappa_deflated_sketch']:.4g}), ~{hc['predicted_iters']:.0f} iters needed)")
 
 
 def make_optimizer(Z: torch.Tensor, lr: float) -> torch.optim.Adam:
@@ -332,22 +581,28 @@ def optimize_step(Z: torch.Tensor, X: torch.Tensor, state, alpha: float,
                   example_block: Optional[int] = None,
                   probes: Union[torch.Tensor, torch.Generator, None] = None,
                   st_samples: int = 256, slq_samples: int = 2,
-                  slq_num_matvecs: Optional[int] = None) -> torch.Tensor:
+                  slq_num_matvecs: Optional[int] = None, **matfree) -> torch.Tensor:
     """One gradient step on ``Z``, in place; returns the loss at the ``Z``
     it started from. ``optimizer`` holds ``Z`` (:func:`make_optimizer`).
-    ``probes``: the stochastic objective's probes, or a generator to draw
-    fresh ones from."""
+    ``probes``: the stochastic objectives' probes, or a generator to draw
+    fresh ones from. ``matfree``: the matfree objective's knobs
+    (``cg_tol``, ``cg_maxiter``, ``precond_rank``, ``precond_power``,
+    ``precond_sketch``, ``cg_example_block``)."""
     if objective == "gram":
         loss, grad = kl_value_and_grad_gram(Z, X, state, alpha,
                                             full_set_size=full_set_size,
                                             example_block=example_block)
-    elif objective == "stochastic":
+    elif objective in ("stochastic", "stochastic_matfree"):
         if probes is None:
-            raise ValueError("the stochastic objective needs probes or a generator")
-        loss, grad = kl_value_and_grad_stochastic(
-            Z, X, state, alpha, probes, full_set_size=full_set_size,
-            st_samples=st_samples, slq_samples=slq_samples,
-            slq_num_matvecs=slq_num_matvecs, example_block=example_block)
+            raise ValueError("the stochastic objectives need probes or a generator")
+        knobs = dict(full_set_size=full_set_size, st_samples=st_samples,
+                     slq_samples=slq_samples, slq_num_matvecs=slq_num_matvecs)
+        if objective == "stochastic":
+            loss, grad = kl_value_and_grad_stochastic(
+                Z, X, state, alpha, probes, example_block=example_block, **knobs)
+        else:
+            loss, grad = kl_value_and_grad_matfree(Z, X, state, alpha, probes, **knobs,
+                                                   **matfree)
     else:
         raise NotImplementedError(NOT_PORTED.format(objective))
     Z.grad = grad
@@ -373,6 +628,9 @@ def train_inducing_points(state, z_init: torch.Tensor, batches: Iterable, *,
                           generator: Optional[torch.Generator] = None,
                           st_samples: int = 256, slq_samples: int = 2,
                           slq_num_matvecs: Optional[int] = None,
+                          cg_tol: float = 1e-3, cg_maxiter: Optional[int] = None,
+                          precond_rank: Optional[int] = 64, precond_power: int = 0,
+                          cg_example_block: Optional[int] = None,
                           callback: Optional[Callable] = None,
                           checkpoint_dir: Optional[str] = None,
                           checkpoint_name: str = "ind",
@@ -380,8 +638,12 @@ def train_inducing_points(state, z_init: torch.Tensor, batches: Iterable, *,
     """Optimize ``Z`` with Adam(``lr``) against minibatches ``(x, y)`` (numpy
     or tensors; moved to ``z_init``'s device).
 
-    The stochastic objective draws fresh probes every step from
-    ``generator`` (default: seed 0 on ``z_init``'s device).
+    The stochastic objectives draw fresh probes every step from
+    ``generator`` (default: seed 0 on ``z_init``'s device). The matfree one
+    first runs :func:`matfree_cg_healthcheck` (printed; it warns on maxiter
+    exits), then builds a fresh Nyström sketch at each step's ``Z`` outside
+    the autograd graph, its start drawn from ``generator`` before the
+    step's probes.
 
     Divergence guard: the loss and ``Z`` are checked every 10 steps, at the
     last step, and at every step when there is a ``callback``
@@ -390,8 +652,17 @@ def train_inducing_points(state, z_init: torch.Tensor, batches: Iterable, *,
     """
     if objective not in OBJECTIVES:
         raise NotImplementedError(NOT_PORTED.format(objective))
-    if objective == "stochastic" and generator is None:
+    if objective.startswith("stochastic") and generator is None:
         generator = torch.Generator(device=z_init.device).manual_seed(0)
+    matfree = {}
+    if objective == "stochastic_matfree":
+        matfree = dict(cg_tol=cg_tol, cg_maxiter=cg_maxiter, precond_rank=precond_rank,
+                       precond_power=precond_power, cg_example_block=cg_example_block)
+        # CG convergence visibility before any step: a silent maxiter stall
+        # biases every trace term
+        hc = matfree_cg_healthcheck(state, z_init, alpha, full_set_size=full_set_size,
+                                    generator=generator, **matfree)
+        print(f"[inducing] matfree CG healthcheck: {healthcheck_line(hc)}")
     Z = z_init.detach().clone()
     optimizer = make_optimizer(Z, lr)
     it = iter(batches)
@@ -399,11 +670,14 @@ def train_inducing_points(state, z_init: torch.Tensor, batches: Iterable, *,
     for step in range(num_steps):
         x_batch, _ = next(it)
         x = torch.as_tensor(x_batch, dtype=torch.float32, device=Z.device)
+        if matfree and precond_rank:
+            matfree["precond_sketch"] = matfree_sketch(state, Z, precond_rank, generator,
+                                                       precond_power, cg_example_block)
         loss = optimize_step(Z, x, state, alpha, optimizer, objective=objective,
                              full_set_size=full_set_size,
                              example_block=example_block, probes=generator,
                              st_samples=st_samples, slq_samples=slq_samples,
-                             slq_num_matvecs=slq_num_matvecs)
+                             slq_num_matvecs=slq_num_matvecs, **matfree)
         check = step % 10 == 0 or step == num_steps - 1
         if check or callback is not None:
             loss_f = float(loss)

@@ -1,5 +1,6 @@
-"""The port's evaluation CLI end to end on the CPU, its data pipeline, and
-the rule that the port never imports JAX."""
+"""The port's evaluation CLI end to end on the CPU (the weight and the
+matfree predictives, and the matfree objective through ``train_scale``), its
+data pipeline, and the rule that the port never imports JAX."""
 
 import gzip
 import json
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from laplace_inducing_points_tpu.data import scale as jscale
-from laplace_inducing_points_tpu_torch.cli import evaluate
+from laplace_inducing_points_tpu_torch.cli import evaluate, train_scale
 from laplace_inducing_points_tpu_torch.core.params import (FlatSpec, lecun_normal_params,
                                                            params_from_jax)
 from laplace_inducing_points_tpu_torch.data import scale as tscale
@@ -25,6 +26,7 @@ from laplace_inducing_points_tpu_torch.utils.checkpoint import save_array, save_
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "scale", "lenet5_mnist.yml")
+MATFREE_CONFIG = os.path.join(REPO, "configs", "scale", "lenet5_mnist_matfree1k.yml")
 
 
 def _small_config(tmp_path) -> str:
@@ -84,6 +86,75 @@ def test_evaluate_refuses_the_dense_predictive(tmp_path):
         evaluate.main(argv)
 
 
+def _matfree_config(tmp_path) -> str:
+    """lenet5_mnist_matfree1k.yml cut to a CPU rehearsal: M 5 (no example
+    blocks: the twins cover them), ip.epochs 1 of batch 4, test batches of
+    8, 4 Krylov steps, rank-4 sketches, 10 CG iterations, S = 3."""
+    text = open(MATFREE_CONFIG).read()
+    for old, new, count in (("    m: 1024\n", "    m: 5\n", 1),
+                            ("    epochs: 60\n", "    epochs: 1\n", 1),
+                            ("    batch_size: 128\n", "    batch_size: 4\n", 1),
+                            ("    batch_size: 256\n", "    batch_size: 8\n", 1),
+                            ("slq_num_matvecs: 64", "slq_num_matvecs: 4", 1),
+                            ("precond_rank: 64", "precond_rank: 4", 2),
+                            ("cg_example_block: 128", "cg_example_block: null", 2),
+                            ("cg_maxiter: 100", "cg_maxiter: 10", 1),
+                            ("cg_maxiter: 200", "cg_maxiter: 10", 1),
+                            ("mc_samples: 32", "mc_samples: 3", 2)):
+        assert text.count(old) == count, old
+        text = text.replace(old, new)
+    path = tmp_path / "lenet5_mnist_matfree_cut.yml"
+    path.write_text(text)
+    return str(path)
+
+
+@pytest.fixture
+def one_intra_op_thread():
+    """A toy-sized run beside other test workers: one intra-op thread keeps
+    it from oversubscribing the cores (restored after the test)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_matfree_train_inducing_then_evaluate_on_cpu(tmp_path, one_intra_op_thread):
+    """``train_scale train_inducing --objective stochastic_matfree`` (the
+    config's CG knobs, the healthchecks) on a seeded MAP, then ``evaluate
+    --predictive matfree`` on its Z, flags over the config's knobs."""
+    _write_checkpoints(tmp_path)
+    common = ["--dataset", "mnist", "--config", _matfree_config(tmp_path), "--device", "cpu",
+              "--ckpt_map", str(tmp_path / "map"), "--ckpt_induc", str(tmp_path / "ind"),
+              "--data_dir", str(tmp_path / "data")]
+    result = train_scale.main(["train_inducing", "--objective", "stochastic_matfree",
+                               "--alpha_ip", "50", "--train_log", str(tmp_path / "log.jsonl"),
+                               *common])
+    hc = result["healthcheck_post"]
+    assert hc["cg_iterations"] <= 10 and math.isfinite(hc["cg_rel_residual"])
+    assert result["inducing"]["objective"] == "stochastic_matfree" and result["Z_moved"] > 0
+    summary = json.loads((tmp_path / "log.jsonl").read_text().splitlines()[-1])
+    assert summary["cg_maxiter"] == 10 and summary["precond_rank"] == 4
+    assert summary["cg_iterations_post"] == hc["cg_iterations"]
+    records = evaluate.main(["--scalable", "--predictive", "matfree", "--iters", "1",
+                             "--max_batches", "1", "--cg_maxiter", "6", "--precond_rank", "0",
+                             *common])
+    rec = records[0]
+    assert rec["predictive"] == "matfree" and rec["alpha"] == 50.0
+    for key in ("nll", "acc", "brier", "ece", "cg_rel_residual"):
+        assert math.isfinite(rec[key]), key
+
+
+def test_matfree_knobs_take_the_flags_over_the_config():
+    cfg = {"cg_tol": 1e-4, "cg_maxiter": 200, "precond_rank": 64, "precond_power": 1,
+           "cg_example_block": 128}
+    args = evaluate.build_parser().parse_args(
+        ["--dataset", "mnist", "--config", "c", "--cg_tol", "1e-6", "--precond_rank", "0"])
+    assert evaluate.matfree_knobs(cfg, args) == {
+        "cg_tol": 1e-6, "cg_maxiter": 200, "precond_rank": None, "precond_power": 1,
+        "cg_example_block": 128}
+    assert evaluate.matfree_knobs(cfg)["precond_rank"] == 64
+
+
 def test_evaluate_cuda_without_gpu_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the refusal cannot be observed")
@@ -102,7 +173,8 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) >= 29, names\n"
         "new = {pkg.__name__ + '.' + m for m in ('training.inducing', 'training.map', "
-        "'cli.train_scale', 'training.alpha', 'training.grid_search', 'data.native')}\n"
+        "'cli.train_scale', 'training.alpha', 'training.grid_search', 'data.native', "
+        "'ops.cg', 'ops.nystrom')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'laplace_inducing_points_tpu'))\n"

@@ -110,8 +110,10 @@ def test_sample_methods_and_refusals():
                  for m in ("gram_eigh", "dense", "lanczos")}
     torch.testing.assert_close(draws["gram_eigh"], draws["dense"], rtol=1e-3, atol=1e-4)
     torch.testing.assert_close(draws["lanczos"], draws["dense"], rtol=1e-3, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsample.sample(pstate, Z, ALPHA, torch.Generator(), method="matheron")
+    with torch.no_grad():
+        matheron = tsample.sample(pstate, Z, ALPHA, torch.Generator().manual_seed(1),
+                                  num_samples=2, full_set_size=N_FULL, method="matheron")
+    assert matheron.shape == draws["dense"].shape and torch.isfinite(matheron).all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ScalableLLAPredictor(pstate, Z, method="cov")
 

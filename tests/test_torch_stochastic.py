@@ -109,8 +109,11 @@ def test_probes_and_unported_estimator():
     assert p.shape == (5, 300) and p.dtype == torch.float32
     assert set(np.unique(p.numpy())) == {-1.0, 1.0}
     assert tst.normal_probes(gen, 3, 7).shape == (3, 7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.trace_of_inverse(lambda V: V, p)
+    # trace_of_inverse runs on the batched CG now: exact with a full range finder
+    A = torch.from_numpy(_spd(6, 8)).double()
+    got = tst.trace_of_inverse(lambda V: V @ A.T, tst.rademacher_probes(gen, 12, 6,
+                                                                        dtype=torch.float64))
+    assert float(got) == pytest.approx(float(torch.trace(torch.linalg.inv(A))), rel=1e-6)
 
 
 # --- Krylov layer ---------------------------------------------------------------
@@ -290,11 +293,18 @@ def test_stochastic_draws_probes_from_a_generator():
 
 
 def test_materialize_w_false_raises():
+    """``materialize_w=False`` is the matfree objective now: on the same
+    probes and a tight CG it gives the materialized value."""
     _, pstate, Z, X, alpha, knobs = _case("classifier")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tind.kl_objective_stochastic(torch.from_numpy(Z), torch.from_numpy(X), pstate, alpha,
-                                     torch.Generator(), materialize_w=False, **knobs)
-    assert set(tind.OBJECTIVES) == {"gram", "stochastic"}
+    args = (torch.from_numpy(Z), torch.from_numpy(X), pstate, alpha)
+    with torch.no_grad():
+        probes = tst.rademacher_probes(torch.Generator().manual_seed(2), knobs["st_samples"],
+                                       pstate.spec.num_params)
+        free = tind.kl_objective_stochastic(*args, probes, materialize_w=False, cg_tol=1e-8,
+                                            precond_rank=4, **knobs)
+        mat = tind.kl_objective_stochastic(*args, probes, **knobs)
+    assert float(free) == pytest.approx(float(mat), rel=1e-4)
+    assert set(tind.OBJECTIVES) == {"gram", "stochastic", "stochastic_matfree"}
 
 
 def test_optimize_step_stochastic_matches_jax():

@@ -141,7 +141,7 @@ def test_alpha_from_the_evidence_on_cpu(tmp_path):
     ["--objective", "gram_chunked"],
     ["--profile", "trace"],
     ["--mesh"],
-    ["--objective", "stochastic_matfree"],
+    ["--mesh", "--objective", "stochastic_matfree"],
     ["--objective", "dense"],
 ])
 def test_unported_flags_raise(tmp_path, extra):
