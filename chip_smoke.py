@@ -80,42 +80,42 @@ exits non-zero without printing a result:
     ``cli.evaluate.main`` on 2 test batches, checked and timed as phase 13;
 16. phase 8's gradient agreement on ResNet1M's trained MAP and Z;
 17. the matrix-free operators at M = 1,024 (``lenet5_mnist_matfree1k.yml``,
-    d = 10,240, seeded weights): the example-blocked W factor against the
-    monolithic one (value and dL/dZ of <Y, gram_matmat(X)>), the Gram action
+    d = 10,240, seeded weights): the W factor over example blocks of 128
+    against one block (value and dL/dZ of <Y, gram_matmat(X)>), the Gram action
     against the rows through B1 and through B3 then B2 and against float64,
     Nystrom-preconditioned and plain CG against a float64 Cholesky solve;
 18. the matfree slice as shipped: ``cli.train_scale.main full_pipeline`` on
     ``lenet5_mnist_matfree1k.yml`` (12 MAP epochs, the alpha grid search on
     the matfree predictive, ip.epochs 60 -> 3 on ``stochastic_matfree``, the
     CG healthchecks), then ``cli.evaluate.main --predictive matfree`` on 2
-    test batches with two generators; B4 and its backward launched; the
+    test batches with two generators; B4 and its backward launched by that
+    run (the counts reported as ``<kernel>@matfree1k``); the
     split of a warm Z step (sketch, trace term with its CG solves, SLQ,
     backward), every solve's iterations, the peak memory, the sketch build
     and one serving batch;
 19. the acceptance checks on phase 18's MAP and Z: (a) matfree dL/dZ against
     the materialized one on the same probes over precond_rank {0, 16, 64} x
-    cg_maxiter {25, 50, 100}, gated at the shipped knobs below the
-    materialized gradient's spread over 4 probe draws (the cosine of the
-    draws' mean with the exact gram dL/dZ printed); (b) 20 matfree, 20
-    materialized (same probes) and 20 gram steps on the same 2,560 images,
-    each one's change of their exact gram KL against the estimate's sd over
-    8 probe draws (printed), gated: the matfree and materialized changes
-    agree within that sd; (c) the healthcheck residual with cuDNN's TF32 on
-    and off (trap C1; printed);
+    cg_maxiter {25, 50, 100}, gated at the shipped knobs: relative L2 at
+    most 0.1, cosine at least 0.99 and below the materialized gradient's
+    spread over 4 probe draws (the cosine of the draws' mean with the exact
+    gram dL/dZ printed); (b) 20 matfree, 20 materialized (same probes) and
+    20 gram steps on the same 2,560 images, each one's change of their
+    exact gram KL against the estimate's sd over 8 probe draws (printed),
+    gated: the matfree trajectory stays within half the materialized one's
+    length of it; (c) the healthcheck residual with cuDNN's TF32 on and off
+    (trap C1; printed);
 20. matfree against materialized Matheron draws on the same eps, eta (tight
     CG gated at 1e-3; the shipped knobs printed), ``--predictive matfree``
     against ``--predictive weight`` (exact) within the weight path's
-    generator noise; every kernel launched over phases 18-20; the kernels at
-    this path's shapes, timed (B1 (10240, D), B2/B3 at S = 32, B4 at P = 12
-    and 4 against Rx);
+    generator noise; B1, B2 and B3 launched by the materialized sampler's
+    build and draws (the counts reported as ``<kernel>@matheron1k``); the
+    kernels at this path's shapes, timed (B1 (10240, D), B2/B3 at S = 32, B4
+    at P = 12 and 4 against Rx);
 21. ``lenet5_mnist_matfree4k.yml`` (M = 4,096, d = 40,960) on phase 18's MAP:
     one Z step through ``cli.train_scale.main train_inducing --alpha_ip 50``
     and one ``cli.evaluate.main --predictive matfree`` batch, timed with
     their peak memory; its KL against the materialized one on the same
     probes (Rz 10.1 GB, the Gram 6.7 GB).
-
-``python3 chip_smoke.py --phases 17,18,19,20,21`` runs phases 1, 2 and those
-of the list alone (19-21 need 18) and prints no result.
 
 The line before the last is the card's ``nvidia-smi`` line; the one before
 it is the per-kernel JSON; the last line is ``{"ok": true, "device": ...}``.
@@ -123,7 +123,6 @@ it is the per-kernel JSON; the last line is ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
-import argparse
 import contextlib
 import json
 import math
@@ -1560,10 +1559,18 @@ ALPHA_4K = 50.0       # lenet5_mnist_matfree4k.yml's header (lines 19-26): --alp
 CONTRACT_RANKS = (0, 16, 64)        # phase 19(a): precond_rank x cg_maxiter
 CONTRACT_MAXITERS = (25, 50, 100)
 SPREAD_DRAWS = 4                    # probe draws behind dL/dZ's spread, phase 19(a)
+# phase 19(a)'s limits at the shipped knobs: measured 0.022-0.034 and
+# 0.9996-0.9998 there; a zero dL/dZ gives 1 and 0, an unpreconditioned
+# solve 0.58 and 0.85
+CONTRACT_REL, CONTRACT_COS = 0.1, 0.99
 DESCENT_STEPS = 20                  # phase 19(b)
 DESCENT_IMAGES = 2560
 DESCENT_DRAWS = 8
-MATFREE_KERNELS = ("syrk", "matmul_nt", "matmul_nn", "ggn_sweep", "ggn_sweep_backward")
+# phase 19(b)'s limit on |Z_free - Z_mat| / |Z_mat - Z0|: measured 0.17-0.21;
+# a trainer that leaves Z where it is gives 1
+TRAJECTORY_APART = 0.5
+MATFREE_KERNELS = ("ggn_sweep", "ggn_sweep_backward")    # the matfree1k CLI path's
+MATHERON_KERNELS = ("syrk", "matmul_nt", "matmul_nn")    # the materialized sampler's
 
 
 @contextlib.contextmanager
@@ -1625,8 +1632,9 @@ def phase_operators(workdir: Path) -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
     Xp, Yp, B = (torch.randn(P, d, generator=gen, device="cuda") for _ in range(3))
     out = {}
-    for name, make in (("WFactor", lambda z: ops.make_w_factor(state, z)),
-                       ("BlockedWFactor", lambda z: ops.make_w_factor_blocked(state, z, blk))):
+    for name, make in (("one block", lambda z: ops.make_w_factor(state, z)),
+                       (f"blocks of {blk}",
+                        lambda z: ops.make_w_factor(state, z, example_block=blk))):
         z = Z.clone().requires_grad_()
 
         def run():
@@ -1637,14 +1645,14 @@ def phase_operators(workdir: Path) -> None:
         torch.cuda.reset_peak_memory_stats()
         (value, grad), seconds = _host_s(run)
         out[name] = (value, grad, seconds, torch.cuda.max_memory_allocated() / 2**30)
-    (v0, g0, s0, p0), (v1, g1, s1, p1) = out["WFactor"], out["BlockedWFactor"]
+    (v0, g0, s0, p0), (v1, g1, s1, p1) = out.values()
     rel_v, rel_g = abs(float(v1 - v0)) / abs(float(v0)), _rel(g1, g0)
-    print(f"  <Y, gram_matmat(X)> at P={P}: WFactor {float(v0):.8g} ({s0:.3f} s with dL/dZ, "
-          f"peak {p0:.2f} GiB), BlockedWFactor (blocks of {blk}) {float(v1):.8g} ({s1:.3f} s, "
+    print(f"  <Y, gram_matmat(X)> at P={P}: W factor in one block {float(v0):.8g} ({s0:.3f} s "
+          f"with dL/dZ, peak {p0:.2f} GiB), in blocks of {blk} {float(v1):.8g} ({s1:.3f} s, "
           f"peak {p1:.2f} GiB); value rel {rel_v:.2e}, dL/dZ rel {rel_g:.2e}", flush=True)
     if not (rel_v <= 1e-5 and rel_g <= 1e-4):
-        raise AssertionError(f"blocked factor vs monolithic: value {rel_v:.2e}, dZ {rel_g:.2e}")
-    blocked = ops.make_w_factor_blocked(state, Z, blk)
+        raise AssertionError(f"blocked factor vs one block: value {rel_v:.2e}, dZ {rel_g:.2e}")
+    blocked = ops.make_w_factor(state, Z, example_block=blk)
     with torch.no_grad():
         Rz = ops.dense_wt(state, Z)
         G = syrk(Rz)
@@ -1775,7 +1783,7 @@ def phase_matfree_path(workdir: Path, smi: str) -> dict:
                              "--max_batches", "2", *common])
     launches = _read_counts()
     print(f"launches during the {label} CLI path: {json.dumps(launches)}")
-    for name in ("ggn_sweep", "ggn_sweep_backward"):
+    for name in MATFREE_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the {label} path")
     if "inducing" not in result:
@@ -1870,15 +1878,14 @@ def phase_acceptance(mf: dict, smi: str) -> None:
     materialized one on the same probes over precond_rank x cg_maxiter,
     gated at the shipped knobs against the materialized gradient's spread
     over probe draws (and the cosine of the draws' mean with the exact gram
-    dL/dZ of the batch, printed); (b) 20 matfree Z steps on 20 batches
-    (2,560 images) from phase 18's Z, against 20 materialized steps on the
-    same probes and 20 gram steps: each one's change of the exact gram KL
-    of those images beside the standard deviation of the stochastic
-    estimate over 8 probe draws at the start (printed); gated: the matfree
-    and the materialized steps change it alike, within that sd; (c) trap
-    C1: the
-    healthcheck residual with cuDNN's TF32 on and off, same right-hand
-    sides (printed, not gated)."""
+    dL/dZ of the batch, printed) and at fixed limits that a wrong gradient
+    fails; (b) 20 matfree Z steps on 20 batches (2,560 images) from phase
+    18's Z, against 20 materialized steps on the same probes and 20 gram
+    steps: each one's change of the exact gram KL of those images beside
+    the standard deviation of the stochastic estimate over 8 probe draws at
+    the start (printed); gated: the matfree trajectory stays close to the
+    materialized one; (c) trap C1: the healthcheck residual with cuDNN's
+    TF32 on and off, same right-hand sides (printed, not gated)."""
     print("== phase 19: the acceptance checks of the matfree objective (M = 1,024)",
           flush=True)
     from laplace_inducing_points_tpu_torch.data.loader import cycling_batches
@@ -1930,12 +1937,14 @@ def phase_acceptance(mf: dict, smi: str) -> None:
                   f"{rel:.4e}, cosine {cos:.6f}; trace term and its dL/dZ {s:.2f} s "
                   f"({smi}); solve iterations {[k for _, k, _ in solves]}", flush=True)
             if rank == ip["precond_rank"] and maxiter == ip["cg_maxiter"]:
-                gate = rel
-    if not gate < spread:
-        raise AssertionError(f"matfree dL/dZ at the shipped knobs {gate:.4e} from the "
-                             f"materialized one, not below the spread {spread:.4e}")
+                gate = (rel, cos)
+    rel, cos = gate
     print(f"  (a) gate at rank {ip['precond_rank']}, maxiter {ip['cg_maxiter']}, tol "
-          f"{ip['cg_tol']}: rel-L2 {gate:.4e} < spread {spread:.4e}", flush=True)
+          f"{ip['cg_tol']}: rel-L2 {rel:.4e} (limit {CONTRACT_REL} and below the spread "
+          f"{spread:.4e}), cosine {cos:.6f} (limit {CONTRACT_COS})", flush=True)
+    if not (rel <= CONTRACT_REL and rel < spread and cos >= CONTRACT_COS):
+        raise AssertionError(f"matfree dL/dZ at the shipped knobs: rel-L2 {rel:.4e}, cosine "
+                             f"{cos:.6f} against the materialized one")
 
     ip_loader, _, _ = get_dataloaders("mnist", ip["batch_size"], aug=False,
                                       root=mf["dirs"]["data"])
@@ -1996,14 +2005,14 @@ def phase_acceptance(mf: dict, smi: str) -> None:
     (Z_free, d_free, _), (Z_mat, d_mat, _) = out["stochastic_matfree"], out["stochastic"]
     apart = float(torch.linalg.norm(Z_free - Z_mat) / torch.linalg.norm(Z_mat - Z))
     print(f"  (b) matfree vs materialized trajectory: |Z_free - Z_mat| / |Z_mat - Z0| "
-          f"{apart:.4f}; exact KL changes {d_free:+.6g} vs {d_mat:+.6g}", flush=True)
-    # the gate: the matfree trainer does what the materialized one does, to
-    # within the estimate's value-noise band (whether either descends is the
-    # estimator's signal at these knobs, printed above)
-    if not abs(d_free - d_mat) <= sd:
-        raise AssertionError(f"the matfree steps moved the exact KL by {d_free:+.6g}, the "
-                             f"materialized ones by {d_mat:+.6g}: apart by more than the sd "
-                             f"{sd:.6g}")
+          f"{apart:.4f} (limit {TRAJECTORY_APART}); exact KL changes {d_free:+.6g} vs "
+          f"{d_mat:+.6g}", flush=True)
+    # the gate: the matfree trainer follows the materialized one on the same
+    # batches and probes (whether either descends is the estimator's signal
+    # at these knobs, printed above)
+    if not apart <= TRAJECTORY_APART:
+        raise AssertionError(f"the matfree trajectory is {apart:.4f} of the materialized "
+                             f"one's length away from it")
 
     res = {}
     old = torch.backends.cudnn.allow_tf32
@@ -2032,8 +2041,9 @@ def phase_predictive_agreement(mf: dict, smi: str) -> dict:
     printed), and the metrics of ``--predictive matfree`` (phase 18) against
     ``--predictive weight`` (exact, --range_clip 0) on the same checkpoint
     and batches: the gap within max(3x the gap of two weight runs with other
-    generators, 1e-3). Returns the launch counts since phase 18 began: every
-    kernel of MATFREE_KERNELS must have been launched."""
+    generators, 1e-3). Returns the launch counts of the materialized
+    sampler's build and draws alone: every kernel of MATHERON_KERNELS must
+    have been launched there."""
     print("== phase 20: matfree against the weight predictive (M = 1,024)", flush=True)
     from laplace_inducing_points_tpu_torch.cli import evaluate
     from laplace_inducing_points_tpu_torch.inference.sample import make_matheron_sampler
@@ -2043,8 +2053,16 @@ def phase_predictive_agreement(mf: dict, smi: str) -> dict:
     eps = torch.randn(S, D, generator=gen, device="cuda")
     eta = torch.randn(S, Z.shape[0] * 10, generator=gen, device="cuda")
     with torch.no_grad():
+        _reset_counts()
         (apply_mat, _), mat_s = _host_s(lambda: make_matheron_sampler(state, Z, alpha, N))
         ref, res_mat = apply_mat(eps, eta, with_info=True)
+        launches = _read_counts()
+    print(f"launches during the materialized Matheron sampler's build and draws: "
+          f"{json.dumps(launches)}")
+    for name in MATHERON_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the materialized Matheron sampler")
+    with torch.no_grad():
         for tol, maxiter, gated in ((1e-6, 500, True),
                                     (sampling["cg_tol"], sampling["cg_maxiter"], False)):
             (apply_free, _), build_s = _host_s(lambda: make_matheron_sampler(
@@ -2074,11 +2092,6 @@ def phase_predictive_agreement(mf: dict, smi: str) -> dict:
     print(f"  serving per batch: weight {weight[1]['per_batch_s']:.4f} s (factor "
           f"{weight[0]['factor_s']:.3f} s), matfree {free[1]['per_batch_s']:.4f} s (sketch "
           f"{free[0]['factor_s']:.3f} s) ({smi})", flush=True)
-    launches = _read_counts()
-    print(f"launches during the matfree1k path (phases 18-20): {json.dumps(launches)}")
-    for name in MATFREE_KERNELS:
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched by the matfree1k path")
     return launches
 
 
@@ -2220,38 +2233,23 @@ def phase_matfree4k(workdir: Path, mf: dict, smi: str) -> None:
         raise AssertionError(f"{label}: matfree KL {rel:.3e} from the materialized one")
 
 
-def run_matfree(workdir: Path, smi: str, phases) -> dict:
-    """Phases 17-21 (those of ``phases``; 19-21 need 18)."""
-    out = {}
-    if 17 in phases:
-        phase_operators(workdir)
-    if 18 not in phases:
-        return out
+def run_matfree(workdir: Path, smi: str) -> dict:
+    """Phases 17-21: the kernels' rows at the matfree1k shapes, and the
+    launches of the matfree1k CLI path and of the materialized sampler."""
+    phase_operators(workdir)
     mf = phase_matfree_path(workdir, smi)
-    if 19 in phases:
-        phase_acceptance(mf, smi)
-    if 20 in phases:
-        out["launches"] = phase_predictive_agreement(mf, smi)
-        out["rows"] = _matfree_kernels(mf["Z"].shape[0] * 10, mf["state"].spec.num_params,
-                                       mf["ip"]["mc_samples"], mf)
-    if 21 in phases:
-        phase_matfree4k(workdir, mf, smi)
+    phase_acceptance(mf, smi)
+    out = {"launches": {"matfree1k": mf["launches"],
+                        "matheron1k": phase_predictive_agreement(mf, smi)},
+           "rows": _matfree_kernels(mf["Z"].shape[0] * 10, mf["state"].spec.num_params,
+                                    mf["ip"]["mc_samples"], mf)}
+    phase_matfree4k(workdir, mf, smi)
     return out
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description="Drive the port on one CUDA GPU.")
-    parser.add_argument("--phases", default=None,
-                        help="comma-separated phases among 17-21 to run after phases 1-2 "
-                             "(19-21 need 18); such a partial run prints no result")
-    args = parser.parse_args(argv)
+def main() -> int:
     smi = phase_environment()
     phase_build()
-    if args.phases:
-        with tempfile.TemporaryDirectory() as tmp:
-            run_matfree(Path(tmp), smi, {int(p) for p in args.phases.split(",")})
-        print("partial run: no result")
-        return 0
     kernel_rows = phase_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         launches, _ = phase_main_path(Path(tmp))
@@ -2287,7 +2285,7 @@ def main(argv=None) -> int:
         scale["resnet1m_cifar10"] = resnet
         del resnet["state"], resnet["Z"], resnet["X"]
         torch.cuda.empty_cache()
-        matfree = run_matfree(Path(tmp), smi, {17, 18, 19, 20, 21})
+        matfree = run_matfree(Path(tmp), smi)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
               "replaces": KERNELS[name][1], "launches": launches[name],
@@ -2327,17 +2325,20 @@ def main(argv=None) -> int:
                    "launches": scale[label]["launches"][name],
                    **{k: rows[name][k] for k in keys}}
                   for name in SCALE_KERNELS]
-    # the matfree slice (phases 18-20): the four kernels and B4's backward timed
-    # at that path's shapes (B4 at the P = 12 range-finder sweep), launches
-    # from phases 18-20
-    table += [{"name": f"{name}@matfree1k", "route": "cuda",
+    # the matfree slice (phases 18-20), each kernel timed at its shapes there:
+    # B4 and its backward (the P = 12 range-finder sweep) with the launches of
+    # the matfree1k CLI path (phase 18), B1-B3 with those of the materialized
+    # Matheron sampler (phase 20)
+    table += [{"name": f"{name}@{label}", "route": "cuda",
                "source": (KERNELS[name][0] if name in KERNELS else
                           "laplace_inducing_points_tpu_torch/csrc/ggn_sweep.cu"),
                "replaces": (KERNELS[name][1] if name in KERNELS else
                             "laplace_inducing_points_tpu/ops/pallas/matmul.py:213"),
-               "launches": matfree["launches"][name],
+               "launches": matfree["launches"][label][name],
                **{k: matfree["rows"][name][k] for k in keys}}
-              for name in MATFREE_KERNELS]
+              for label, names in (("matfree1k", MATFREE_KERNELS),
+                                   ("matheron1k", MATHERON_KERNELS))
+              for name in names]
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,16 @@
-"""Linearization, the materialized GGN row factor and the matrix-free
-curvature operators.
+"""Linearization, the materialized GGN row factor and the matrix-free W
+factor.
 
 Counterpart of ``laplace_inducing_points_tpu/core/operators.py``: ``pdot``
 (``:44``), ``model_outputs`` (``:61``), ``Linearization``/``linearize_model``
-(``:80-164``), ``_probe_blocked`` (``:171``), ``WFactor`` (``:186``),
-``BlockedWFactor``/``make_w_factor_blocked`` (``:342-493``), ``dense_wt``
-(``:496-532``) with its pullback in ``Z`` (the reference's
-``_rows_chunk_vjp``, ``training/inducing.py:591``), ``GGNOperator``
-(``:578``), ``ggn_matmat_materialized`` (``:625``) on the ``ggn_sweep``
-kernel, ``make_w_factor``, ``make_ggn_operator``,
-``make_curvature_operator``, ``curvature_dense`` (``:646-699``) and
-``ensure_symmetry`` (``:702``).
+(``:80-164``), ``_probe_blocked`` (``:171``), ``WFactor`` and
+``BlockedWFactor`` as one class built by ``make_w_factor`` (``:186-493``,
+``:647``), ``dense_wt`` (``:496-532``) with its pullback in ``Z`` (the
+reference's ``_rows_chunk_vjp``, ``training/inducing.py:591``),
+``ggn_matmat_materialized`` (``:625``) on the ``ggn_sweep`` kernel and
+``ensure_symmetry`` (``:702``). ``GGNOperator``, ``make_ggn_operator``,
+``make_curvature_operator`` and ``curvature_dense`` serve the dense paths,
+which are not ported yet (ROADMAP, Queue A).
 
 Operator glossary (D = #params, M = #points, K = #outputs, d = M·K):
 ``W : R^{M×K} -> R^D``, ``W U = c · Σ_i J_iᵀ L_i U_i``; ``Wᵀ : R^D -> R^{M×K}``,
@@ -18,13 +18,13 @@ Operator glossary (D = #params, M = #points, K = #outputs, d = M·K):
 GGN is ``Rᵀ R = W Wᵀ``.
 
 PyTorch has no stored linearization like ``jax.linearize``: each jvp here
-re-runs the primal forward pass alongside the tangent. A single jvp is
-``torch.func.jvp``; a single vjp is ``torch.autograd.grad`` of the forward
-(with ``create_graph`` when grad mode is on, so it stays differentiable in
-``Z``), which, unlike ``torch.func.vjp``, also runs inside
+re-runs the primal forward pass alongside the tangent. The factor's single
+jvp is ``torch.func.jvp`` and its single vjp ``torch.autograd.grad`` of the
+forward (with ``create_graph`` when grad mode is on, so it stays
+differentiable in ``Z``), which, unlike ``torch.func.vjp``, also runs inside
 ``torch.utils.checkpoint`` (the Golub–Kahan steps of the matfree log-det);
 probe batches are ``torch.func.vmap`` of ``jvp`` and of ``vjp``'s pullback.
-Every operator is differentiable in the point set ``Z``.
+The factor is differentiable in the point set ``Z``.
 """
 
 from __future__ import annotations
@@ -75,21 +75,6 @@ class Linearization:
     jvp: Callable[[torch.Tensor], torch.Tensor]      # (D,) -> (M, K)
     vjp: Callable[[torch.Tensor], torch.Tensor]      # (M, K) -> (D,)
     logvar: torch.Tensor | float      # scalar for regressors, 0 otherwise
-    vjp_batched: Callable[[torch.Tensor], torch.Tensor] = field(repr=False, default=None)
-    state: object = field(repr=False, default=None)
-    inputs: Optional[torch.Tensor] = field(repr=False, default=None)   # (M, ...) points
-
-    @property
-    def num_points(self) -> int:
-        return self.f0.shape[0]
-
-    @property
-    def out_dim(self) -> int:
-        return self.f0.shape[-1]
-
-    @property
-    def num_params(self) -> int:
-        return self.flat_params.shape[0]
 
 
 def _vjp_of_outputs(f: Callable, flat: torch.Tensor,
@@ -104,13 +89,6 @@ def _vjp_of_outputs(f: Callable, flat: torch.Tensor,
         out = f(p)
         ct = ct_of(out if create else out.detach())
         return torch.autograd.grad(out, p, ct, create_graph=create)[0]
-
-
-def _vjp_batched(f: Callable, flat: torch.Tensor, cts: torch.Tensor) -> torch.Tensor:
-    """``(∂f/∂θ)ᵀ ct`` for each row of ``cts (P, ...)``: one forward, the
-    pullback vmapped over the rows."""
-    _, pull = vjp(f, flat)
-    return vmap(pull)(cts)[0]
 
 
 def linearize_model(state, Z: torch.Tensor) -> Linearization:
@@ -128,11 +106,11 @@ def linearize_model(state, Z: torch.Tensor) -> Linearization:
     def jvp_fn(v: torch.Tensor) -> torch.Tensor:
         return jvp(f, (flat,), (v,))[1]
 
+    def vjp_fn(ct: torch.Tensor) -> torch.Tensor:
+        return vjp(f, flat)[1](ct)[0]
+
     return Linearization(model_kind=state.model_kind, flat_params=flat, f0=f(flat),
-                         jvp=jvp_fn, vjp=lambda ct: _vjp_of_outputs(f, flat, lambda _: ct),
-                         logvar=state.logvar,
-                         vjp_batched=lambda cts: _vjp_batched(f, flat, cts),
-                         state=state, inputs=Z)
+                         jvp=jvp_fn, vjp=vjp_fn, logvar=state.logvar)
 
 
 def row_fn(state) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -201,7 +179,7 @@ def dense_wt_pullback(state, Z: torch.Tensor, ct: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# matrix-free W factor and GGN operators
+# the matrix-free W factor
 # ---------------------------------------------------------------------------
 
 def _probe_blocked(batched_fn: Callable[[torch.Tensor], torch.Tensor], V: torch.Tensor,
@@ -215,117 +193,33 @@ def _probe_blocked(batched_fn: Callable[[torch.Tensor], torch.Tensor], V: torch.
     return torch.cat([batched_fn(V[i:i + block]) for i in range(0, P, block)])
 
 
-class _ProbeActions:
-    """The probe-batched actions of a W factor, from its batched primitives
-    ``_t_mm: (P, D) -> (P, M, K)`` and ``_mm: (P, M, K) -> (P, D)``."""
+@dataclass(frozen=True)
+class WFactor:
+    """The GGN square-root factor ``W`` as a matrix-free operator at ``Z``:
+    ``t_matvec`` is one jvp and ``matvec`` one vjp of the network, and the
+    probe-batched actions vmap them. The model runs over example blocks
+    ``Z[s:s+b]`` one after another (one block of all ``M`` examples when no
+    block is set), so the live activations are one block's; the primal
+    forward is recomputed per block in every action.
+
+    Padding contract (the reference's ``BlockedWFactor``): when ``b ∤ M`` the
+    example axis is padded with ``Z[:pad]``; ``t_matvec`` trims their rows
+    (zero cotangent, no phantom dZ) and ``matvec`` gives them zero
+    coefficients (the vjp is linear in them, so they add nothing to the
+    value or to dZ).
+    """
+    inner_shape: tuple[int, int]          # (M, K)
+    num_params: int                       # D
+    scale: float                          # sqrt(N/M) recalibration
+    state: object = field(repr=False)
+    blocks: tuple = field(repr=False)     # the padded Z in blocks of b
+    pad: int = 0
 
     @property
     def d(self) -> int:
         """Columns of W (= M·K)."""
         M, K = self.inner_shape
         return M * K
-
-    def t_matmat(self, V: torch.Tensor, block: Optional[int] = None) -> torch.Tensor:
-        """Batched ``Wᵀ`` over probes: ``(P, D) -> (P, M, K)``, in chunks of
-        ``block`` probes (bounding the live tangent activations to
-        ``block·M`` examples)."""
-        return _probe_blocked(self._t_mm, V, block)
-
-    def matmat(self, U: torch.Tensor, block: Optional[int] = None) -> torch.Tensor:
-        """Batched ``W`` over probes: ``(P, M, K) -> (P, D)``."""
-        return _probe_blocked(self._mm, U, block)
-
-    def gram_matmat(self, V: torch.Tensor, block: Optional[int] = None) -> torch.Tensor:
-        """The Gram action ``Wᵀ(W ·)`` on flat probe rows ``(P, d) -> (P, d)``,
-        unscaled by β; ``block`` bounds the live tangents of both legs (the
-        inner operation of every Nyström sketch and CG solve)."""
-        M, K = self.inner_shape
-
-        def one(Vc: torch.Tensor) -> torch.Tensor:
-            return self._t_mm(self._mm(Vc.reshape(-1, M, K))).reshape(Vc.shape[0], M * K)
-
-        return _probe_blocked(one, V, block)
-
-
-@dataclass(frozen=True)
-class WFactor(_ProbeActions):
-    """The GGN square-root factor ``W`` as a matrix-free operator over the
-    batched network at ``Z``: ``t_matvec`` is one jvp, ``matvec`` one vjp,
-    and the probe-batched actions vmap them."""
-    lin: Linearization
-    scale: float                    # sqrt(N/M) recalibration
-
-    @property
-    def inner_shape(self) -> tuple[int, int]:
-        return (self.lin.num_points, self.lin.out_dim)
-
-    @property
-    def num_params(self) -> int:
-        return self.lin.num_params
-
-    def t_matvec(self, v: torch.Tensor) -> torch.Tensor:
-        """``Wᵀ v``: ``(D,) -> (M, K)``."""
-        lin = self.lin
-        return self.scale * lh.sqrt_h_t_apply(lin.model_kind, lin.f0, lin.jvp(v), lin.logvar)
-
-    def matvec(self, U: torch.Tensor) -> torch.Tensor:
-        """``W U``: ``(M, K) -> (D,)``."""
-        lin = self.lin
-        return self.scale * lin.vjp(lh.sqrt_h_apply(lin.model_kind, lin.f0, U, lin.logvar))
-
-    def _t_mm(self, V: torch.Tensor) -> torch.Tensor:
-        lin = self.lin
-        return self.scale * lh.sqrt_h_t_apply(lin.model_kind, lin.f0, vmap(lin.jvp)(V),
-                                              lin.logvar)
-
-    def _mm(self, U: torch.Tensor) -> torch.Tensor:
-        lin = self.lin
-        return self.scale * lin.vjp_batched(lh.sqrt_h_apply(lin.model_kind, lin.f0, U,
-                                                            lin.logvar))
-
-    def gram(self, block: Optional[int] = None) -> torch.Tensor:
-        """Dense ``WᵀW`` (``d × d``) from per-example rows ``R = LᵀJ``.
-
-        ``block=None``: all rows at once and one product. ``block=b``: pairs
-        of example blocks of ``b // K`` examples, lower block triangle only,
-        so at most two ``block × D`` row blocks are alive at once.
-        """
-        state, Z, scale = self.lin.state, self.lin.inputs, self.scale
-        M, K = self.inner_shape
-        if block is None or block >= M * K:
-            R = dense_wt(state, Z, scale=scale)
-            G = pdot(R, R.T)
-            return 0.5 * (G + G.T)
-        spans = _blocks(M, max(1, block // K))
-        G = torch.zeros(M * K, M * K, dtype=Z.dtype, device=Z.device)
-        for i, sp in enumerate(spans):
-            Rp = dense_wt(state, Z[sp], scale=scale)
-            rp = slice(sp.start * K, sp.stop * K)
-            G[rp, rp] = 0.5 * pdot(Rp, Rp.T)
-            for sq in spans[:i]:
-                G[rp, sq.start * K:sq.stop * K] = pdot(Rp, dense_wt(state, Z[sq],
-                                                                    scale=scale).T)
-        return G + G.T
-
-
-@dataclass(frozen=True)
-class BlockedWFactor(_ProbeActions):
-    """``W`` whose model jvp/vjp runs over example blocks ``Z[s:s+b]`` one
-    after another: the same operator as :class:`WFactor`, with the live
-    activations of one block instead of all ``M`` examples. The primal
-    forward is recomputed per block in every action.
-
-    Padding contract (the reference's): when ``b ∤ M`` the example axis is
-    padded with ``Z[:pad]``; ``t_matvec`` trims their rows (zero cotangent, no
-    phantom dZ) and ``matvec`` gives them zero coefficients (the vjp is linear
-    in them, so they add nothing to the value or to dZ).
-    """
-    inner_shape: tuple[int, int]          # (M, K)
-    num_params: int                       # D
-    scale: float
-    state: object = field(repr=False)
-    blocks: tuple = field(repr=False)     # the padded Z in blocks of b
-    pad: int = 0
 
     def _f(self, z: torch.Tensor) -> Callable[[torch.Tensor], torch.Tensor]:
         return lambda p: model_outputs(self.state, p, z)
@@ -337,7 +231,7 @@ class BlockedWFactor(_ProbeActions):
         return U.split(self.blocks[0].shape[0], dim=-2)
 
     def t_matvec(self, v: torch.Tensor) -> torch.Tensor:
-        """``Wᵀ v``: ``(D,) -> (M, K)``, blockwise."""
+        """``Wᵀ v``: ``(D,) -> (M, K)``."""
         st = self.state
         outs = [lh.sqrt_h_t_apply(st.model_kind, *jvp(self._f(z), (st.flat_params,), (v,)),
                                   st.logvar) for z in self.blocks]
@@ -370,88 +264,43 @@ class BlockedWFactor(_ProbeActions):
             out = out + vmap(pull)(lh.sqrt_h_apply(st.model_kind, f0, u, st.logvar))[0]
         return self.scale * out
 
+    def t_matmat(self, V: torch.Tensor, block: Optional[int] = None) -> torch.Tensor:
+        """Batched ``Wᵀ`` over probes: ``(P, D) -> (P, M, K)``, in chunks of
+        ``block`` probes (bounding the live tangent activations to
+        ``block·b`` examples)."""
+        return _probe_blocked(self._t_mm, V, block)
 
-def make_w_factor_blocked(state, Z: torch.Tensor, example_block: int,
-                          full_set_size: Optional[int] = None) -> BlockedWFactor:
-    """A :class:`BlockedWFactor` over ``Z`` in blocks of ``example_block``
-    examples, with ``sqrt(N/M)`` recalibration (``N = full_set_size or M``)."""
+    def matmat(self, U: torch.Tensor, block: Optional[int] = None) -> torch.Tensor:
+        """Batched ``W`` over probes: ``(P, M, K) -> (P, D)``."""
+        return _probe_blocked(self._mm, U, block)
+
+    def gram_matmat(self, V: torch.Tensor, block: Optional[int] = None) -> torch.Tensor:
+        """The Gram action ``Wᵀ(W ·)`` on flat probe rows ``(P, d) -> (P, d)``,
+        unscaled by β; ``block`` bounds the live tangents of both legs (the
+        inner operation of every Nyström sketch and CG solve)."""
+        M, K = self.inner_shape
+
+        def one(Vc: torch.Tensor) -> torch.Tensor:
+            return self._t_mm(self._mm(Vc.reshape(-1, M, K))).reshape(Vc.shape[0], M * K)
+
+        return _probe_blocked(one, V, block)
+
+
+def make_w_factor(state, Z: torch.Tensor, full_set_size: Optional[int] = None,
+                  example_block: Optional[int] = None) -> WFactor:
+    """The :class:`WFactor` at ``Z`` with ``sqrt(N/M)`` recalibration
+    (``N = full_set_size or M``), its model run over example blocks of
+    ``example_block`` (``None`` or 0: one block; the reference's
+    ``make_w_factor_blocked`` when set)."""
     M = Z.shape[0]
-    b = int(min(example_block, M))
+    b = int(min(example_block or M, M))
     pad = (-M) % b
     Zp = torch.cat([Z, Z[:pad]]) if pad else Z
     with torch.no_grad():
         K = model_outputs(state, state.flat_params, Z[:1]).shape[-1]
-    return BlockedWFactor(inner_shape=(M, K), num_params=state.spec.num_params,
-                          scale=math.sqrt((full_set_size or M) / M), state=state,
-                          blocks=tuple(Zp.split(b)), pad=pad)
-
-
-def cg_factor(state, Z: torch.Tensor, cg_example_block: Optional[int] = None):
-    """The unscaled ``W`` factor at ``Z`` that the matfree solves run on: over
-    example blocks of ``cg_example_block`` when it is set."""
-    if cg_example_block:
-        return make_w_factor_blocked(state, Z, cg_example_block)
-    return make_w_factor(state, Z)
-
-
-@dataclass(frozen=True)
-class GGNOperator:
-    """``v ↦ c² Σ_i J_iᵀ H_i J_i v``: one jvp, the loss Hessian, one vjp of
-    the batched network."""
-    lin: Linearization
-    scale: float                      # N/M recalibration (c²)
-
-    @property
-    def num_params(self) -> int:
-        return self.lin.num_params
-
-    def matvec(self, v: torch.Tensor) -> torch.Tensor:
-        lin = self.lin
-        hv = lh.h_apply(lin.model_kind, lin.f0, lin.jvp(v), lin.logvar)
-        return self.scale * lin.vjp(hv)
-
-    def matmat(self, V: torch.Tensor) -> torch.Tensor:
-        """Batched probes: ``(P, D) -> (P, D)``."""
-        lin = self.lin
-        hv = lh.h_apply(lin.model_kind, lin.f0, vmap(lin.jvp)(V), lin.logvar)
-        return self.scale * lin.vjp_batched(hv)
-
-    def dense(self) -> torch.Tensor:
-        """The ``D × D`` GGN (test path; small models only)."""
-        R = dense_wt(self.lin.state, self.lin.inputs)            # (M·K, D)
-        return self.scale * pdot(R.T, R)
-
-
-def make_w_factor(state, Z: torch.Tensor, full_set_size: Optional[int] = None,
-                  lin: Optional[Linearization] = None) -> WFactor:
-    """The ``W`` factor with ``sqrt(N/M)`` recalibration."""
-    lin = lin or linearize_model(state, Z)
-    M = lin.num_points
-    return WFactor(lin=lin, scale=math.sqrt((full_set_size or M) / M))
-
-
-def make_ggn_operator(state, Z: torch.Tensor, full_set_size: Optional[int] = None,
-                      lin: Optional[Linearization] = None) -> GGNOperator:
-    """The GGN operator with ``N/M`` recalibration."""
-    lin = lin or linearize_model(state, Z)
-    M = lin.num_points
-    return GGNOperator(lin=lin, scale=(full_set_size or M) / M)
-
-
-def make_curvature_operator(state, Z: torch.Tensor, alpha: float,
-                            full_set_size: Optional[int] = None,
-                            lin: Optional[Linearization] = None
-                            ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``v ↦ (GGN + αI) v``, the PSD curvature ``S``."""
-    ggn = make_ggn_operator(state, Z, full_set_size, lin=lin)
-    return lambda v: ggn.matvec(v) + alpha * v
-
-
-def curvature_dense(state, Z: torch.Tensor, alpha: float,
-                    full_set_size: Optional[int] = None) -> torch.Tensor:
-    """Dense ``S = GGN + αI`` (test path)."""
-    G = make_ggn_operator(state, Z, full_set_size).dense()
-    return G + alpha * torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
+    return WFactor(inner_shape=(M, K), num_params=state.spec.num_params,
+                   scale=math.sqrt((full_set_size or M) / M), state=state,
+                   blocks=tuple(Zp.split(b)), pad=pad)
 
 
 def ggn_matmat_materialized(state, Z: torch.Tensor, V: torch.Tensor,

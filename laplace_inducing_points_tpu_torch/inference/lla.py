@@ -2,8 +2,9 @@
 
 Counterpart of ``laplace_inducing_points_tpu/inference/lla.py``:
 ``predict_lla_scalable`` (``:107``), ``_amortized_logit_samples``
-(``:133-174``), the matfree predictive's ``_jitted_nystrom_sketch`` and
-``_matfree_logit_samples`` (``:183-296``) and ``ScalableLLAPredictor`` with
+(``:133-174``), the matfree predictive's ``_matfree_logit_samples``
+(``:183-296``; its ``_jitted_nystrom_sketch`` is ``matfree_sketch`` of
+``training/inducing.py`` with scale β) and ``ScalableLLAPredictor`` with
 ``method="weight"`` or ``"matfree"`` (``:348-488``). The ``cov`` predictor,
 the dense predictive and the mesh sharding wait for later slices (ROADMAP,
 Queue A).
@@ -20,19 +21,18 @@ from __future__ import annotations
 
 import math
 import warnings
-from typing import Optional, Union
+from typing import Optional
 
 import torch
 from torch.func import vmap
 
 from laplace_inducing_points_tpu_torch.core import operators as ops
-from laplace_inducing_points_tpu_torch.inference.sample import _batch_rel_residual, _g_weights
+from laplace_inducing_points_tpu_torch.inference.sample import _g_weights, make_matheron_sampler
 from laplace_inducing_points_tpu_torch.inference.sample import sample as sample_weights
-from laplace_inducing_points_tpu_torch.ops.cg import cg_batched
-from laplace_inducing_points_tpu_torch.ops.nystrom import (nystrom_sketch, precond_from_sketch,
-                                                           sketch_probe_block)
+from laplace_inducing_points_tpu_torch.ops.nystrom import sketch_probe_block
 from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nn, matmul_nt
 from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk
+from laplace_inducing_points_tpu_torch.training.inducing import matfree_sketch
 
 
 def predict_lla_scalable(state, Xnew: torch.Tensor, Z: torch.Tensor, alpha: float,
@@ -101,64 +101,36 @@ def amortized_logit_samples(state, R: torch.Tensor, lam: torch.Tensor,
                                               sample_block)
 
 
-@torch.no_grad()
-def matfree_nystrom_sketch(state, Z: torch.Tensor, beta: float, rank: int,
-                           omega: Union[torch.Tensor, torch.Generator], power: int = 0,
-                           example_block: Optional[int] = None):
-    """The Nyström sketch of ``β·Gzz`` for the matfree predictive, once per
-    ``(state, Z)``: its ``rank·(1+power)`` Gram matvecs are the expensive part;
-    the α-dependent tail is O(rank) in each batch."""
-    w = ops.cg_factor(state, Z, example_block)
-    blk = sketch_probe_block(w.inner_shape[0], rank)
-    return nystrom_sketch(lambda V: beta * w.gram_matmat(V, block=blk), w.d, rank, omega,
-                          power=power)
-
-
 def matfree_logit_samples_from_noise(state, Z: torch.Tensor, sketch, alpha: float,
-                                     beta: float, x: torch.Tensor, eps: torch.Tensor,
-                                     eta: torch.Tensor, cg_tol: float,
+                                     full_set_size: Optional[int], x: torch.Tensor,
+                                     eps: torch.Tensor, eta: torch.Tensor, cg_tol: float,
                                      cg_maxiter: Optional[int] = None,
                                      sample_block: Optional[int] = None,
                                      example_block: Optional[int] = None):
     """One evaluation step of the ``d_z``-unbounded predictive on given noise
-    ``eps (S, D)`` and ``eta (S, d)``: Matheron draws by preconditioned CG
-    against the matrix-free Gram (``sketch``: :func:`matfree_nystrom_sketch`,
-    or ``None``), pushed forward by the linearization at ``x``. Nothing of
-    size ``d_z × D`` or ``d_z × d_z`` is formed.
+    ``eps (S, D)`` and ``eta (S, d)``: the matfree Matheron sampler
+    (``make_matheron_sampler(materialize_w=False)``, preconditioned by
+    ``sketch``, a :func:`matfree_sketch` of ``βGzz``, or ``None``), pushed
+    forward by the linearization at ``x``. Nothing of size ``d_z × D`` or
+    ``d_z × d_z`` is formed.
 
     Returns ``((S, B, K) logit samples, the worst CG relative residual)``; a
     residual ≫ ``cg_tol`` means maxiter exits. ``sample_block`` solves and
     pushes forward that many draws at a time; ``example_block`` runs the
     factor over example blocks.
     """
-    wz = ops.cg_factor(state, Z, example_block)
-    M_, K_ = wz.inner_shape
-    d = M_ * K_
-    sqrt_alpha, sqrt_beta = math.sqrt(alpha), math.sqrt(beta)
-    precond = None if sketch is None else precond_from_sketch(*sketch, alpha)
-    maxiter = cg_maxiter or 10 * d
+    apply, _ = make_matheron_sampler(state, Z, alpha, full_set_size, materialize_w=False,
+                                     cg_tol=cg_tol, cg_maxiter=cg_maxiter,
+                                     precond_rank=None, precond_sketch=sketch,
+                                     cg_example_block=example_block)
     lin = ops.linearize_model(state, x)
     push = vmap(lin.jvp)
-
-    def draw(e: torch.Tensor, h: torch.Tensor):
-        n = e.shape[0]
-        U = sqrt_beta * wz.t_matmat(e).reshape(n, d) + sqrt_alpha * h
-        cgblk = sketch_probe_block(M_, n)
-
-        def c_matmat(Xm: torch.Tensor) -> torch.Tensor:
-            return beta * wz.gram_matmat(Xm, block=cgblk) + alpha * Xm
-
-        X, _ = cg_batched(c_matmat, U, tol=cg_tol, maxiter=maxiter, precond=precond)
-        res = _batch_rel_residual(c_matmat(X), U)
-        w_draws = (e - sqrt_beta * wz.matmat(X.reshape(n, M_, K_))) / sqrt_alpha
-        return push(w_draws), res
-
     S = eps.shape[0]
     block = S if not sample_block else sample_block
     outs, worst = [], None
     for i in range(0, S, block):
-        dy, res = draw(eps[i:i + block], eta[i:i + block])
-        outs.append(dy)
+        draws, res = apply(eps[i:i + block], eta[i:i + block], with_info=True)
+        outs.append(push(draws))
         worst = res if worst is None else torch.maximum(worst, res)
     return lin.f0[None] + torch.cat(outs), worst
 
@@ -205,6 +177,7 @@ class ScalableLLAPredictor:
         M = Z.shape[0]
         self.state = state
         self.method = method
+        self.full_set_size = full_set_size
         self.beta = float(full_set_size or M) / M
         self.rank_tol = rank_tol
         self.range_clip_min = range_clip_min
@@ -224,10 +197,8 @@ class ScalableLLAPredictor:
             if precond_rank:
                 omega = (precond_omega if precond_omega is not None else
                          torch.Generator(device=Z.device).manual_seed(0x4E59))
-                self.nys = matfree_nystrom_sketch(state, Z, self.beta,
-                                                  min(precond_rank, self.d), omega,
-                                                  power=precond_power,
-                                                  example_block=cg_example_block)
+                self.nys = matfree_sketch(state, Z, min(precond_rank, self.d), omega,
+                                          precond_power, cg_example_block, scale=self.beta)
             return
         self.R = ops.dense_wt(state, Z, example_block=example_block)
         self.d = self.R.shape[0]
@@ -248,7 +219,7 @@ class ScalableLLAPredictor:
                           device=device)
         eta = torch.randn(num_samples, self.d, generator=generator, device=device)
         out, res = matfree_logit_samples_from_noise(
-            self.state, self.Z, self.nys, alpha, self.beta, x, eps, eta, self.cg_tol,
+            self.state, self.Z, self.nys, alpha, self.full_set_size, x, eps, eta, self.cg_tol,
             self.cg_maxiter, self.sample_block, self.cg_example_block)
         self.last_cg_residual = float(res)
         # floored at the f32-attainable residual: a tolerance below round-off

@@ -32,10 +32,11 @@ import torch
 from laplace_inducing_points_tpu_torch.core import operators as ops
 from laplace_inducing_points_tpu_torch.ops import lanczos as lz
 from laplace_inducing_points_tpu_torch.ops.cg import cg_batched
-from laplace_inducing_points_tpu_torch.ops.nystrom import (nystrom_preconditioner,
-                                                           sketch_probe_block)
+from laplace_inducing_points_tpu_torch.ops.nystrom import precond_from_sketch, sketch_probe_block
 from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nn, matmul_nt
 from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk
+from laplace_inducing_points_tpu_torch.training.inducing import (_cholesky, _pivot_jitter,
+                                                                 matfree_sketch)
 
 
 def _g_weights(lam: torch.Tensor, alpha: float, beta: float,
@@ -144,7 +145,7 @@ def make_matheron_sampler(state, Z: torch.Tensor, alpha: float,
                           materialize_w: bool = True,
                           cg_tol: float = 1e-4, cg_maxiter: Optional[int] = None,
                           precond_rank: Optional[int] = 64, precond_power: int = 0,
-                          precond_omega=None,
+                          precond_omega=None, precond_sketch=None,
                           cg_example_block: Optional[int] = None):
     """Exact posterior draws without a matrix square root (Matheron's rule).
 
@@ -161,17 +162,16 @@ def make_matheron_sampler(state, Z: torch.Tensor, alpha: float,
     through ``matmul_nn``, true FP32. ``materialize_w=False``: nothing of size
     ``d × D`` or ``d × d``; ``C⁻¹`` is a batched CG (``cg_tol``,
     ``cg_maxiter``, default ``10·d``) against the matrix-free Gram (over
-    example blocks of ``cg_example_block``), preconditioned by a rank
-    ``precond_rank`` Nyström sketch (``precond_power`` passes) built once
-    here from ``precond_omega`` (a ``(d, k)`` start or a generator; default
-    a generator seeded ``0x4E59``).
+    example blocks of ``cg_example_block``), preconditioned by
+    ``precond_sketch`` (a :func:`matfree_sketch` of ``βG``, which depends on
+    ``(state, Z)`` only) or else by a rank ``precond_rank`` sketch
+    (``precond_power`` passes) built once here from ``precond_omega`` (a
+    ``(d, k)`` start or a generator; default a generator seeded ``0x4E59``).
 
     Returns ``(apply, d)``: ``apply(eps (P, D), eta (P, d))`` gives the draws,
     ``apply(..., with_info=True)`` ``(draws, worst relative residual of the
     solve)``; a CG residual ≫ ``cg_tol`` means maxiter exits.
     """
-    from laplace_inducing_points_tpu_torch.training.inducing import _cholesky, _pivot_jitter
-
     M = Z.shape[0]
     beta = (full_set_size or M) / M
     sqrt_alpha, sqrt_beta = math.sqrt(alpha), math.sqrt(beta)
@@ -193,17 +193,17 @@ def make_matheron_sampler(state, Z: torch.Tensor, alpha: float,
 
         return apply, d
 
-    w = ops.cg_factor(state, Z, cg_example_block)
+    w = ops.make_w_factor(state, Z, example_block=cg_example_block)
     M_, K_ = w.inner_shape
     d = M_ * K_
-    precond = None
-    if precond_rank:
-        # depends only on (state, Z, alpha, beta): built once, not per draw batch
-        blk = sketch_probe_block(M_, precond_rank)
+    sketch = precond_sketch
+    if sketch is None and precond_rank:
+        # depends only on (state, Z, beta): built once, not per draw batch
         omega = (precond_omega if precond_omega is not None else
                  torch.Generator(device=Z.device).manual_seed(0x4E59))
-        precond = nystrom_preconditioner(lambda V: beta * w.gram_matmat(V, block=blk), d,
-                                         precond_rank, alpha, omega, power=precond_power)
+        sketch = matfree_sketch(state, Z, precond_rank, omega, precond_power,
+                                cg_example_block, scale=beta)
+    precond = None if sketch is None else precond_from_sketch(*sketch, alpha)
 
     def apply(eps: torch.Tensor, eta: torch.Tensor, with_info: bool = False):
         P = eps.shape[0]

@@ -125,8 +125,3 @@ def cg_batched(matmat: MatMat, B: torch.Tensor, *, tol: float = 1e-5,
     info: list = []
     X = _CGSolve.apply(matmat, precond, tol, int(maxiter), info, B, *operator_inputs)
     return X, info[0]
-
-
-def rowwise(precond_vec: Callable[[torch.Tensor], torch.Tensor]) -> MatMat:
-    """Lift a ``(d,) -> (d,)`` preconditioner to ``(P, d)`` rows."""
-    return torch.func.vmap(precond_vec)

@@ -135,16 +135,3 @@ def precond_inv_sqrt_from_sketch(U: torch.Tensor, lam: torch.Tensor,
     mult = _coefficients(lam, good, rho, deflation_floor)
     coeff = torch.where(good, torch.sqrt(mult) - 1.0, torch.zeros_like(mult))
     return _low_rank_update(U, coeff)
-
-
-def nystrom_preconditioner(gram_matmat: MatMat, d: int, rank: int, rho: float,
-                           omega: Union[torch.Tensor, torch.Generator],
-                           deflation_floor: float = 1e-5, power: int = 0) -> MatMat:
-    """``apply(v) = P⁻¹ v`` for ``C = G + ρI`` from ``rank`` Gram matvecs.
-
-    ``deflation_floor`` caps the deflation of a direction at 1/floor: with
-    zero modes ``λ̂_min → 0`` and the textbook multiplier could fall below f32
-    round-off; the floor keeps P⁻¹'s spectrum in [floor, 1].
-    """
-    U, lam, good = nystrom_sketch(gram_matmat, d, rank, omega, power=power)
-    return precond_from_sketch(U, lam, good, rho, deflation_floor)

@@ -282,15 +282,17 @@ def _stochastic_setup(Z: torch.Tensor, X: torch.Tensor, state,
 
 def matfree_sketch(state, Z: torch.Tensor, rank: int,
                    omega: Union[torch.Tensor, torch.Generator], power: int = 0,
-                   cg_example_block: Optional[int] = None):
-    """The Nyström sketch ``(U, lam, good)`` of the unscaled Gram ``WzᵀWz`` at
-    ``Z``, built without a graph through the CG factor, its probes in chunks of
-    ``sketch_probe_block``: the preconditioner of one matfree step."""
+                   cg_example_block: Optional[int] = None, scale: float = 1.0):
+    """The Nyström sketch ``(U, lam, good)`` of ``scale·WzᵀWz`` at ``Z``, built
+    without a graph through the factor over example blocks of
+    ``cg_example_block``, its probes in chunks of ``sketch_probe_block``: the
+    preconditioner of one matfree step (``scale`` 1), or of the Matheron
+    solves against ``βG + αI`` (``scale`` β)."""
     with torch.no_grad():
-        wz = ops.cg_factor(state, Z.detach(), cg_example_block)
+        wz = ops.make_w_factor(state, Z.detach(), example_block=cg_example_block)
         blk = sketch_probe_block(wz.inner_shape[0], rank)
-        return nystrom_sketch(lambda V: wz.gram_matmat(V, block=blk), wz.d, rank, omega,
-                              power=power)
+        return nystrom_sketch(lambda V: scale * wz.gram_matmat(V, block=blk), wz.d, rank,
+                              omega, power=power)
 
 
 def matfree_trace_term(Z: torch.Tensor, X: torch.Tensor, state, alpha: float, beta: float,
@@ -313,7 +315,7 @@ def matfree_trace_term(Z: torch.Tensor, X: torch.Tensor, state, alpha: float, be
     with torch.no_grad():
         Rx = ops.dense_wt(state, X)                                  # (d_x, D)
     wz = ops.make_w_factor(state, Z)
-    wz_cg = ops.cg_factor(state, Z, cg_example_block) if cg_example_block else wz
+    wz_cg = ops.make_w_factor(state, Z, example_block=cg_example_block)
     Mk, Kk = wz.inner_shape
     d_z = Mk * Kk
     maxiter = 10 * d_z if cg_maxiter is None else cg_maxiter
@@ -505,7 +507,7 @@ def matfree_cg_healthcheck(state, Z: torch.Tensor, alpha: float, *,
     M = Z.shape[0]
     rho = float(alpha) / ((full_set_size or M) / M)
     gen = generator or torch.Generator(device=Z.device).manual_seed(0)
-    wz = ops.cg_factor(state, Z.detach(), cg_example_block)
+    wz = ops.make_w_factor(state, Z.detach(), example_block=cg_example_block)
     d_z = wz.d
 
     def c_matmat(Xm: torch.Tensor) -> torch.Tensor:

@@ -57,7 +57,7 @@ def test_cg_batched_matches_jax_and_a_direct_solve(precond):
                                   if precond == "jacobi" else None))
     At = torch.from_numpy(A)
     got, info = tcg.cg_batched(lambda X: X @ At.T, torch.from_numpy(B), tol=1e-7, maxiter=400,
-                               precond=(tcg.rowwise(lambda r: r * torch.from_numpy(inv_diag))
+                               precond=((lambda R: R * torch.from_numpy(inv_diag))
                                         if precond == "jacobi" else None))
     exact = np.linalg.solve(A.astype(np.float64), B.T.astype(np.float64)).T
     assert _rel(got.numpy(), np.asarray(ref)) <= RTOL

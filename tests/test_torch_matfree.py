@@ -1,5 +1,5 @@
-"""Twin tests of the port's matfree slice: the matrix-free operators
-(``WFactor``, ``BlockedWFactor``, ``GGNOperator``), the
+"""Twin tests of the port's matfree slice: the matrix-free ``WFactor``
+(against the reference's ``WFactor`` and ``BlockedWFactor``), the
 ``stochastic_matfree`` objective with its dL/dZ (whole, and route by route),
 the Golub–Kahan recompute, the Matheron sampler both ways, the matfree
 predictive, the CG healthcheck and the trainer.
@@ -119,17 +119,17 @@ def test_w_factor_actions_match_jax(kind, M):
     assert (tw.d, tw.inner_shape, tw.num_params) == (jw.d, jw.inner_shape, jw.num_params)
 
 
-@pytest.mark.parametrize("block", [2, 5])
+@pytest.mark.parametrize("block", [2, 4, 5])
 def test_blocked_factor_matches_monolithic_and_jax(toy, block):
-    """Blocks of 2 pad 5 points to 6 (the padding contract), blocks of 5
-    are one; every action equals the monolithic factor's and JAX's blocked
-    one's."""
+    """Blocks of 2 pad 5 points to 6 and blocks of 4 pad them to 8 (the
+    padding contract), blocks of 5 are one; every action equals the
+    one-block factor's and JAX's blocked one's."""
     jstate, pstate, Z, _, _, _ = toy
     D = pstate.spec.num_params
     v, U, G = _normal(11, D), _normal(12, M_TOY, K_TOY), _normal(13, 4, M_TOY * K_TOY)
     jb = jops.make_w_factor_blocked(jstate, jnp.asarray(Z), block, full_set_size=N)
     with torch.no_grad():
-        tb = tops.make_w_factor_blocked(pstate, torch.from_numpy(Z), block, full_set_size=N)
+        tb = tops.make_w_factor(pstate, torch.from_numpy(Z), N, example_block=block)
         tm = tops.make_w_factor(pstate, torch.from_numpy(Z), full_set_size=N)
         for name, arg, ref in (("t_matvec", v, jb.t_matvec), ("matvec", U, jb.matvec),
                                ("gram_matmat", G, jb.gram_matmat),
@@ -159,33 +159,12 @@ def test_factor_dz_matches_jax(toy, blocked):
 
     ref = jax.jit(jax.grad(jax_loss))(jnp.asarray(Z))
     z = torch.from_numpy(Z).requires_grad_()
-    f = tops.make_w_factor_blocked(pstate, z, 2) if blocked else tops.make_w_factor(pstate, z)
+    f = tops.make_w_factor(pstate, z, example_block=2 if blocked else None)
     loss = (torch.sum(torch.from_numpy(Yg) * f.gram_matmat(torch.from_numpy(Xg)))
             + torch.sum(torch.from_numpy(u) * f.t_matvec(torch.from_numpy(v)))
             + torch.sum(torch.from_numpy(w) * f.matvec(torch.from_numpy(U))))
     (got,) = torch.autograd.grad(loss, z)
     assert _rel(got.numpy(), ref) <= 1e-5
-
-
-def test_ggn_operator_and_curvature_match_jax(toy):
-    jstate, pstate, Z, _, _, _ = toy
-    D = pstate.spec.num_params
-    v, V = _normal(20, D), _normal(21, 3, D)
-    jg = jops.make_ggn_operator(jstate, jnp.asarray(Z), full_set_size=N)
-    with torch.no_grad():
-        tg = tops.make_ggn_operator(pstate, torch.from_numpy(Z), full_set_size=N)
-        assert _rel(tg.matvec(torch.from_numpy(v)).numpy(), jg.matvec(jnp.asarray(v))) <= 1e-5
-        assert _rel(tg.matmat(torch.from_numpy(V)).numpy(), jg.matmat(jnp.asarray(V))) <= 1e-5
-        S = tops.curvature_dense(pstate, torch.from_numpy(Z), ALPHA, N)
-        s_mv = tops.make_curvature_operator(pstate, torch.from_numpy(Z), ALPHA, N)
-        assert _rel(s_mv(torch.from_numpy(v)).numpy(), S.numpy() @ v) <= 1e-5
-        w = tops.make_w_factor(pstate, torch.from_numpy(Z), full_set_size=N)
-        gram_blocked, gram = w.gram(block=2 * K_TOY), w.gram()
-    ref_S, ref = jax.jit(lambda z: (
-        jops.curvature_dense(jstate, z, ALPHA, N),
-        jops.make_w_factor(jstate, z, full_set_size=N).gram()))(jnp.asarray(Z))
-    np.testing.assert_allclose(S.numpy(), ref_S, rtol=1e-4, atol=1e-5)
-    assert _rel(gram.numpy(), ref) <= 1e-5 and _rel(gram_blocked.numpy(), ref) <= 1e-5
 
 
 # --- the stochastic_matfree objective ------------------------------------------
@@ -407,7 +386,7 @@ def test_sample_matheron_dispatches(toy):
     """sample(method="matheron") draws ε then η from the generator and runs
     the sampler; its draws have the posterior's covariance S⁻¹ in the mean
     of many (checked against the dense inverse square root)."""
-    _, pstate, Z, _, _, _ = toy
+    jstate, pstate, Z, _, _, _ = toy
     D, d = pstate.spec.num_params, M_TOY * K_TOY
     with torch.no_grad():
         draws = tsample.sample(pstate, torch.from_numpy(Z), ALPHA,
@@ -420,7 +399,8 @@ def test_sample_matheron_dispatches(toy):
         # Matheron's rule: E[θθᵀ] = S⁻¹, so E[(aᵀθ)²] = aᵀS⁻¹a for any a
         gen = torch.Generator().manual_seed(5)
         many = apply(torch.randn(4000, D, generator=gen), torch.randn(4000, d, generator=gen))
-        S = tops.curvature_dense(pstate, torch.from_numpy(Z), ALPHA, N).double()
+        S = torch.from_numpy(np.array(jops.curvature_dense(jstate, jnp.asarray(Z), ALPHA,
+                                                             N))).double()
         a = torch.from_numpy(_normal(32, D)).double()
         want = float(a @ torch.linalg.solve(S, a))
         assert float(torch.mean((many.double() @ a) ** 2)) == pytest.approx(want, rel=0.1)
@@ -443,10 +423,10 @@ def test_matfree_predictive_matches_jax(toy):
     eta = np.array(jax.random.normal(k2, (S, d)))
     omega = torch.from_numpy(np.array(jax.random.normal(sk_key, (d, rank), dtype=jnp.float32)))
     with torch.no_grad():
-        sketch = tlla.matfree_nystrom_sketch(pstate, torch.from_numpy(Z), beta, rank, omega,
-                                             power=1)
+        sketch = tind.matfree_sketch(pstate, torch.from_numpy(Z), rank, omega, power=1,
+                                     scale=beta)
         got, res = tlla.matfree_logit_samples_from_noise(
-            pstate, torch.from_numpy(Z), sketch, ALPHA, beta, torch.from_numpy(x),
+            pstate, torch.from_numpy(Z), sketch, ALPHA, N, torch.from_numpy(x),
             torch.from_numpy(eps), torch.from_numpy(eta), 1e-8, 300, sample_block=3,
             example_block=2)
     np.testing.assert_allclose(sketch[1].numpy(), np.asarray(nys[1]), rtol=1e-4)
@@ -503,6 +483,7 @@ def test_matfree_trainer_descends_the_exact_kl(capsys):
     classifier fixture, Z = the first 4 points + 1, Adam steps of 8e-2 (8
     with 32 probes here, 15 with 64 there)."""
     _, jstate, (x, _) = classifier_state()
+    dense = jax.jit(lambda z: jops.curvature_dense(jstate, z, ALPHA, N))
     flat, _ = params_from_jax(jax.tree.map(np.asarray, jax.device_get(jstate.params)))
     pstate = ModelState(SimpleClassifier(6, 1, 2, 2), flat, "classifier")
     x = np.asarray(x)
@@ -510,8 +491,8 @@ def test_matfree_trainer_descends_the_exact_kl(capsys):
 
     def dense_kl(Z):
         with torch.no_grad():
-            S = tops.curvature_dense(pstate, X, ALPHA, N).double()
-            Sz = tops.curvature_dense(pstate, Z, ALPHA, N).double()
+            S = torch.from_numpy(np.array(dense(jnp.asarray(X.detach().numpy())))).double()
+            Sz = torch.from_numpy(np.array(dense(jnp.asarray(Z.detach().numpy())))).double()
             return float(torch.trace(torch.linalg.solve(Sz, S)) + torch.linalg.slogdet(Sz)[1])
 
     losses = []

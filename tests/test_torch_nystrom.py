@@ -112,12 +112,11 @@ def test_preconditioner_deflates_and_speeds_up_cg():
     Gt = torch.from_numpy(G)
     C = Gt + rho * torch.eye(d)
     gen = torch.Generator().manual_seed(0)
-    apply = tny.nystrom_preconditioner(lambda V: V @ Gt.T, d, k, rho, gen)
+    U, lam, good = tny.nystrom_sketch(lambda V: V @ Gt.T, d, k, gen)
+    apply = tny.precond_from_sketch(U, lam, good, rho)
     Pinv = apply(torch.eye(d))
     ev = torch.linalg.eigvalsh(0.5 * (Pinv + Pinv.T))
     assert float(ev.min()) > 0
-    U, lam, good = tny.nystrom_sketch(lambda V: V @ Gt.T, d, k,
-                                      torch.Generator().manual_seed(0))
     half = tny.precond_inv_sqrt_from_sketch(U, lam, good, rho)(torch.eye(d))
     S = half @ C @ half
     kappa = torch.linalg.cond(C)
