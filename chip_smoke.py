@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one CUDA GPU.
+"""Drive the PyTorch port's serving, training and toy paths once on one CUDA GPU.
 
 Run from the root of the repository:  python3 chip_smoke.py
 
@@ -117,7 +117,33 @@ exits non-zero without printing a result:
     one Z step through ``cli.train_scale.main train_inducing --alpha_ip 50``
     and one ``cli.evaluate.main --predictive matfree`` batch, timed with
     their peak memory; its KL against the materialized one on the same
-    probes (Rz 10.1 GB, the Gram 6.7 GB).
+    probes without its pivot jitter (Rz 10.1 GB, the Gram 6.7 GB);
+22. the kernels at the toy shapes (banana d_z 80, D 626; spiral 100, 4,946;
+    sine 40, 321): B1-B3 forward and backward against their plain versions
+    and float64 by phase 3's rules (the bias gate, B1 exactly symmetric), B3's
+    own backward and B4 at banana's stochastic step, timed against the bound
+    and the torch.mm each replaces;
+23. banana as shipped: ``cli.main_toy.main full_pipeline`` (250 MAP epochs,
+    500 gram Z steps at alpha_train 1, every figure computed on the card) and
+    ``cli.evaluate.main`` with the weight, cov and dense predictives against
+    the OOD ring at r = 1.05; the MAP loss falls, Z moves, the figures are
+    finite, the cov statistics are reused, B1, B2 and their backward passes
+    launched (``<kernel>@banana``);
+24. the golden banana MAP and Z (tests/golden) through the port's weight
+    predictor at S = 200: band (a) of tests/test_golden_banana.py; the dense
+    and cov predictives' NLL printed beside it;
+25. regressor_sine.yml through ``cli.main_toy.main full_pipeline`` (map.epochs
+    cut where as shipped would take more than 60 s at banana's step time) and
+    ``cli.evaluate.main`` (weight, dense): the Gaussian NLL falls, logvar moves,
+    the 1-D predictive is finite with a positive variance, the kernels
+    launched (``<kernel>@sine``);
+26. classifier_xor.yml's 4 restarts (``main_toy train_inducing``, the lowest
+    full-set KL selected) and banana's stochastic Z step (``--scalable``, 5
+    steps; B3's backward and B4 launched, ``<kernel>@banana``);
+27. ``cli.evaluate.main --predictive cov`` at LeNet5's full width on phase 7's
+    MAP and Z beside ``--predictive weight``: finite metrics, the statistics
+    cache hit on the second repetition, the self-check's share and the NLL
+    gaps printed with the peak memory.
 
 The line before the last is the card's ``nvidia-smi`` line; the one before
 it is the per-kernel JSON; the last line is ``{"ok": true, "device": ...}``.
@@ -134,8 +160,10 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
+import numpy as np
 import torch
 
 SEED = 20261016
@@ -2212,8 +2240,9 @@ def phase_matfree4k(workdir: Path, mf: dict, smi: str) -> None:
     ``cli.train_scale.main train_inducing --alpha_ip 50`` (its header's alpha;
     ip.epochs 150 -> 1) and one ``cli.evaluate.main --predictive matfree``
     batch, timed with their peak memory; the matfree KL against the
-    materialized stochastic KL on the same probes (Rz 10.1 GB, the Gram
-    6.7 GB)."""
+    materialized stochastic KL on the same probes without its Cholesky pivot
+    jitter, the same function (Rz 10.1 GB, the Gram 6.7 GB; the jitter's
+    share, which varies with the MAP, printed)."""
     label = "matfree4k"
     print(f"== phase 21: {label} (M = 4,096): one Z step and one serving batch", flush=True)
     from laplace_inducing_points_tpu_torch.cli import evaluate, train_scale
@@ -2273,13 +2302,17 @@ def phase_matfree4k(workdir: Path, mf: dict, smi: str) -> None:
             cg_example_block=ip["cg_example_block"], **knobs))
         free_peak = torch.cuda.max_memory_allocated() / 2**30
         torch.cuda.reset_peak_memory_stats()
-        v_mat, mat_s = _host_s(lambda: ind.kl_objective_stochastic(
-            Z, X, state, ALPHA_4K, probes, **knobs))
+        with _no_pivot_jitter():
+            v_mat, mat_s = _host_s(lambda: ind.kl_objective_stochastic(
+                Z, X, state, ALPHA_4K, probes, **knobs))
         mat_peak = torch.cuda.max_memory_allocated() / 2**30
+        v_jit = ind.kl_objective_stochastic(Z, X, state, ALPHA_4K, probes, **knobs)
     rel = abs(float(v_free - v_mat)) / abs(float(v_mat))
+    jitter = abs(float(v_jit - v_mat)) / abs(float(v_mat))
     print(f"{label} KL on the same probes: matfree {float(v_free):.8g} ({free_s:.2f} s, peak "
-          f"{free_peak:.2f} GiB), materialized {float(v_mat):.8g} ({mat_s:.2f} s, peak "
-          f"{mat_peak:.2f} GiB; {smi}); rel {rel:.3e}", flush=True)
+          f"{free_peak:.2f} GiB), materialized without its pivot jitter {float(v_mat):.8g} "
+          f"({mat_s:.2f} s, peak {mat_peak:.2f} GiB; {smi}); rel {rel:.3e}; the jitter moves "
+          f"the materialized KL by {jitter:.3e}", flush=True)
     if not rel <= 1e-3:
         raise AssertionError(f"{label}: matfree KL {rel:.3e} from the materialized one")
 
@@ -2296,6 +2329,434 @@ def run_matfree(workdir: Path, smi: str) -> dict:
                                     mf["ip"]["mc_samples"], mf)}
     phase_matfree4k(workdir, mf, smi)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the toy slice (phases 22-27): the toy configs at their own widths, the
+# dense paths and the cov predictive
+# ---------------------------------------------------------------------------
+
+TOY = {"banana": "configs/toy/classifier_banana.yml", "xor": "configs/toy/classifier_xor.yml",
+       "sine": "configs/toy/regressor_sine.yml"}
+# the kernels' shapes on each toy path (d_z = m·K, d_x = ip.batch_size·K, D, and S:
+# the serving draws, ip.mc_samples): banana 40·2, 64·2, D = 626, S = 1,000; spiral
+# 50·2, 64·2, D = 4,946; sine 40·1, 128·1, D = 321, S = 5
+TOY_SHAPES = {"banana": (80, 128, 626, 1000), "spiral": (100, 128, 4946, 1000),
+              "sine": (40, 128, 321, 5)}
+TOY_KERNELS = ("syrk", "matmul_nt", "matmul_nn", "syrk_backward", "matmul_nt_backward")
+# banana's stochastic Z step (--scalable, phase 26): the Woodbury correction's
+# backward and the probe sweep, V (240, 626) against Rx (128, 626), scale N/|X|
+BANANA_STOCHASTIC = ("matmul_nn_backward", "ggn_sweep", "ggn_sweep_backward")
+SINE_MAP_BUDGET_S = 60.0     # phase 25 cuts map.epochs where as shipped would take longer
+XOR_MAP_CUT = {500: 20}      # phase 26(a): a MAP to train Z on, not a result
+GOLDEN_BAND = {"nll": (0.233, 0.03), "ece": (0.146, 0.03), "acc": (0.98, 0.021)}
+
+
+def _toy_source(name: str, row: dict) -> tuple[str, str]:
+    """(the CUDA source of the paths a timed call took, the JAX function it
+    replaces)."""
+    base = "laplace_inducing_points_tpu_torch/csrc/"
+    if name.startswith("ggn_sweep"):
+        return base + "ggn_sweep.cu", "laplace_inducing_points_tpu/ops/pallas/matmul.py:213"
+    replaces = KERNELS[name][1] if name in KERNELS else BACKWARD[name]
+    if name == "syrk":
+        return base + "syrk.cu", replaces
+    tiled = any(p.endswith(".tiled") for p in row["paths"])
+    return base + ("matmul_tiled.cu" if tiled else "matmul.cu"), replaces
+
+
+def _toy_kernels(label: str) -> dict:
+    """B1-B3 forward and backward at a toy path's shapes (and, for banana, B3's
+    own backward and B4 at the stochastic step's), each by phase 3's rules
+    against its plain version and float64 (the Gram exactly symmetric, the
+    bias gate), timed against the bound and the torch.mm it replaces."""
+    from laplace_inducing_points_tpu_torch.ops.cuda.matmul import (matmul_nn,
+                                                                   matmul_nn_plain,
+                                                                   matmul_nt,
+                                                                   matmul_nt_plain)
+    from laplace_inducing_points_tpu_torch.ops.cuda.sweep import ggn_sweep, ggn_sweep_plain
+    from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk, syrk_plain
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    d_z, d_x, D, S = TOY_SHAPES[label]
+    print(f"  {label}: d_z={d_z}, d_x={d_x}, D={D}, S={S}", flush=True)
+    Rz, Rx = randn(d_z, D), randn(d_x, D)
+    rows = {"syrk": _check_kernel("syrk", syrk, syrk_plain, (Rz,), timed=True)}
+    for A in (Rz, _offset(Rz, 1)):
+        C = syrk(A)
+        if not torch.equal(C, C.T):
+            raise AssertionError(f"syrk {(d_z, D)}: not exactly symmetric")
+    print(f"  syrk {(d_z, D)} exactly symmetric (aligned and off 16 bytes): True")
+    rows["matmul_nt"] = _check_kernel("matmul_nt", matmul_nt, matmul_nt_plain, (Rx, Rz),
+                                      timed=True)
+    rows["matmul_nt.serving"] = _check_kernel("matmul_nt", matmul_nt, matmul_nt_plain,
+                                              (randn(S, D), Rz), timed=True)
+    rows["matmul_nn"] = _check_kernel("matmul_nn", matmul_nn, matmul_nn_plain,
+                                      (randn(S, d_z), Rz), timed=True)
+    _check_kernel("matmul_nn", matmul_nn, matmul_nn_plain, (_offset(randn(S, d_z), 1), Rz),
+                  timed=False)
+    _check_bias([(f"{name} at {label}", row["bias"], row["plain_bias"],
+                  row["plain_rel_vs_f64"], row["outputs"]) for name, row in rows.items()])
+    ct_zz, ct_xz = randn(d_z, d_z), randn(d_x, d_z)
+    sym_zz = ct_zz + ct_zz.T
+    rows["syrk_backward"] = _check_backward(
+        "syrk_backward", syrk, syrk_plain, (Rz,), (True,), ct_zz, timed=True,
+        library=lambda: torch.mm(sym_zz, Rz))
+    rows["syrk_backward"].update(bound(2 * d_z * d_z * D, 4 * (2 * d_z * D + d_z * d_z),
+                                       _peak(rows["syrk_backward"]["paths"])))
+    rows["matmul_nt_backward"] = _check_backward(
+        "matmul_nt_backward", matmul_nt, matmul_nt_plain, (Rx, Rz), (False, True), ct_xz,
+        timed=True, library=lambda: torch.mm(ct_xz.T, Rx))
+    rows["matmul_nt_backward"].update(bound(2 * d_z * d_x * D,
+                                            4 * (d_x * D + d_x * d_z + d_z * D),
+                                            _peak(rows["matmul_nt_backward"]["paths"])))
+    if label == "banana":
+        P = 240
+        A, ct = randn(P, d_z), randn(P, D)
+        rows["matmul_nn_backward"] = _check_backward(
+            "matmul_nn_backward", matmul_nn, matmul_nn_plain, (A, Rz), (True, True), ct,
+            timed=True, library=lambda: (torch.mm(ct, Rz.T), torch.mm(A.T, ct)))
+        rows["matmul_nn_backward"].update(bound(4 * P * d_z * D,
+                                                4 * (P * d_z + 2 * d_z * D + P * D + P * d_z),
+                                                _peak(rows["matmul_nn_backward"]["paths"])))
+        scale = 450 / 64
+        V, ct = randn(P, D), randn(P, D)
+        v = V.clone().requires_grad_()
+        out = ggn_sweep(v, Rx, scale)
+        (dv,) = torch.autograd.grad(out, v, ct, retain_graph=True)
+        ref = ggn_sweep_plain(V.double(), Rx.double(), scale)
+        dv_ref = ggn_sweep_plain(ct.double(), Rx.double(), scale)
+        fwd_err, lib_err = _rel(out, ref), _rel(_library_sweep(V, Rx, scale), ref)
+        dv_err, dv_lib = _rel(dv, dv_ref), _rel(_library_sweep(ct, Rx, scale), dv_ref)
+        print(f"  ggn_sweep V {(P, D)} R {(d_x, D)} scale {scale:.4g}: rel vs f64 {fwd_err:.3e} "
+              f"(cuBLAS TF32 {lib_err:.3e}); dV {dv_err:.3e} (cuBLAS TF32 {dv_lib:.3e})",
+              flush=True)
+        if not (fwd_err <= F64_RATIO * lib_err and dv_err <= F64_RATIO * dv_lib):
+            raise AssertionError(f"ggn_sweep at {label}: further from float64 than "
+                                 f"{F64_RATIO} x cuBLAS TF32")
+        work = _sweep_work(P, d_x, D)
+        for name, call, plain, lib, err in (
+                ("ggn_sweep", lambda: ggn_sweep(V, Rx, scale),
+                 lambda: ggn_sweep_plain(V, Rx, scale), lambda: _library_sweep(V, Rx, scale),
+                 float((out - ggn_sweep_plain(V, Rx, scale)).abs().max())),
+                ("ggn_sweep_backward",
+                 lambda: torch.autograd.grad(out, v, ct, retain_graph=True),
+                 lambda: ggn_sweep_plain(ct, Rx, scale), lambda: _library_sweep(ct, Rx, scale),
+                 float((dv - ggn_sweep_plain(ct, Rx, scale)).abs().max()))):
+            rows[name] = {"max_abs_err": err, "ms": cuda_ms(call), "plain_ms": cuda_ms(plain),
+                          "library_ms": cuda_ms(lib), "paths": set(), **work}
+    for name, row in rows.items():
+        print(f"  {name}@{label}: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
+              f"({row['bound_by']}); paths {sorted(row['paths'])}"
+              + ("  SLOWER than its library call" if row["ms"] > row["library_ms"] else ""),
+              flush=True)
+    del Rz, Rx
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_toy_kernels() -> dict:
+    print("== phase 22: the kernels at the toy shapes (banana, spiral, sine)", flush=True)
+    return {label: _toy_kernels(label) for label in TOY_SHAPES}
+
+
+def _quiet(main, argv: list, log: Path):
+    """``main(argv)`` with its standard output written to ``log``; the log's
+    last lines are printed when it raises."""
+    with open(log, "w") as f, contextlib.redirect_stdout(f):
+        try:
+            return main(argv)
+        except BaseException:
+            f.flush()
+            failed = True
+        else:
+            failed = False
+    if failed:
+        print("\n".join(log.read_text().splitlines()[-40:]))
+        raise AssertionError(f"{main.__module__} {' '.join(argv[:3])} failed (log above)")
+
+
+def _toy_dirs(workdir: Path, label: str) -> tuple[dict, list]:
+    dirs = {key: str(workdir / f"toy_{label}_{key}") for key in ("map", "ind", "fig", "data")}
+    return dirs, ["--device", "cuda", "--ckpt_map", dirs["map"], "--ckpt_induc", dirs["ind"],
+                  "--data_dir", dirs["data"]]
+
+
+def _check_launches(label: str, names, launches: dict) -> None:
+    print(f"launches during the {label} path: {json.dumps({n: launches[n] for n in names})}")
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the {label} path")
+
+
+def _eval_line(rec: dict) -> str:
+    metrics = " ".join(f"{k}={rec[k]:.5f}" for k in ("nll", "acc", "brier", "ece", "rmse",
+                                                     "picp90", "ood_auroc") if k in rec)
+    return (f"factor build {rec['factor_s']:.4f} s, {rec['batches']} batches, "
+            f"{rec['per_batch_s']:.4f} s per batch; {metrics}")
+
+
+def phase_toy_banana(workdir: Path, smi: str) -> dict:
+    """banana as shipped through ``cli.main_toy full_pipeline`` (250 MAP epochs,
+    500 Z steps at alpha_train 1, the config's alpha, the gram objective, every
+    figure computed on the card), then ``cli.evaluate`` on its MAP and Z with
+    the weight, cov and dense predictives against the OOD ring at r = 1.05."""
+    print("== phase 23: banana as shipped (cli.main_toy full_pipeline, then cli.evaluate "
+          "weight / cov / dense)", flush=True)
+    from laplace_inducing_points_tpu_torch.cli import evaluate, main_toy
+    dirs, common = _toy_dirs(workdir, "banana")
+    data = ["--dataset", "banana", "--config", TOY["banana"]]
+    _reset_counts()
+    result = _quiet(main_toy.main, ["full_pipeline", *data, "--plot_Z", "--comparison",
+                                    "--fig_dir", dirs["fig"], *common],
+                    workdir / "toy_banana.log")
+    mp, ind = result["map"], result["inducing"]
+    print(f"MAP: {mp['steps']} steps, warm median {mp['s_per_step']:.5f} s per step ({smi}); "
+          f"loss {mp['loss_first']:.4f} -> {mp['loss_last']:.4f} (mean of the first 10 "
+          f"{mp['loss_head']:.4f}, of the last 10 {mp['loss_tail']:.4f})")
+    print(f"Z: {ind['steps']} gram steps, warm median {ind['s_per_step']:.5f} s per step "
+          f"({smi}); loss {ind['loss_first']:.6g} -> {ind['loss_last']:.6g}; max |Z - Z0| = "
+          f"{ind['z_moved']:.4g}; figures computed on the card: {result['figures']}")
+    if not (math.isfinite(mp["loss_tail"]) and mp["loss_tail"] < mp["loss_head"]):
+        raise AssertionError(f"banana MAP loss did not fall: {mp}")
+    if not (ind["z_moved"] > 0 and math.isfinite(ind["loss_last"])):
+        raise AssertionError(f"banana Z: {ind}")
+    if len(result["figures"]) != 4 or not all(result["figures"].values()):
+        raise AssertionError(f"banana figures not finite: {result['figures']}")
+    records = {}
+    for name, flags in (("weight", ["--scalable", "--predictive", "weight"]),
+                        ("cov", ["--scalable", "--predictive", "cov"]), ("dense", [])):
+        records[name] = _quiet(evaluate.main, [*data, "--ood-dataset", "ring",
+                                               "--ood_ring_radius", "1.05", "--iters", "2",
+                                               *flags, *common],
+                               workdir / f"toy_banana_eval_{name}.log")
+        for rec in records[name]:
+            if not all(math.isfinite(rec[k]) for k in ("nll", "acc", "ece", "ood_auroc")):
+                raise AssertionError(f"banana evaluate {name}: {rec}")
+            print(f"evaluate {name} iteration {rec['iter']}: {_eval_line(rec)}", flush=True)
+    cov = records["cov"][1]
+    print(f"cov: statistics cache hits on the second repetition {cov['stats_cache_hits']} of "
+          f"{cov['batches']} batches; self-check share outside the 3x band "
+          f"{cov['cov_check_frac']:.4f}")
+    if cov["stats_cache_hits"] != cov["batches"]:
+        raise AssertionError(f"cov statistics were not reused: {cov}")
+    launches = _read_counts()
+    _check_launches("banana", TOY_KERNELS, launches)
+    return {"launches": launches, "dirs": dirs, "map_s_per_step": mp["s_per_step"]}
+
+
+def _kept(lam: torch.Tensor, rank_tol: float = 1e-7) -> int:
+    """Eigenvalues the samplers' g-weights keep (``inference.sample._g_weights``)."""
+    return int((lam > rank_tol * max(float(lam.max()), 1.0)).sum())
+
+
+def phase_golden_banana(smi: str) -> None:
+    """The JAX package's golden banana MAP (converted: tests/golden/banana_torch) and
+    Z at its recorded alpha, full_set_size 450, range clip 1.0, S = 200, through
+    the port's weight predictor: band (a) of tests/test_golden_banana.py; the
+    dense and cov predictives' NLL on the same MAP and Z printed."""
+    print("== phase 24: the golden banana operating point through the port", flush=True)
+    from laplace_inducing_points_tpu_torch.cli.evaluate import toy_loaders
+    from laplace_inducing_points_tpu_torch.data.toy import ring_cache_fname
+    from laplace_inducing_points_tpu_torch.evaluation.harness import (auroc_ood,
+                                                                      eval_dataset_extended)
+    from laplace_inducing_points_tpu_torch.inference.lla import (DenseLLAPredictor,
+                                                                 ScalableLLAPredictor)
+    from laplace_inducing_points_tpu_torch.models.state import ModelState
+    from laplace_inducing_points_tpu_torch.models.toy import SimpleClassifier
+    from laplace_inducing_points_tpu_torch.utils.checkpoint import (load_array, load_params,
+                                                                    load_run_meta)
+    flat, _, _ = load_params("tests/golden/banana_torch", "map_banana")
+    state = ModelState(SimpleClassifier(16, 3, 2, 2).cuda(), flat.cuda(), "classifier")
+    Z = torch.as_tensor(load_array("tests/golden/banana", "ind_banana", 500)).cuda()
+    alpha = load_run_meta("tests/golden/banana", "ind_banana")["alpha_ip"]
+    test = toy_loaders("banana", 32, "data/", {"n": 500, "noise": 0.090, "seed": 584848})[1]
+    rings = {r: toy_loaders("ring", 32, "data/", radius=r, fname=ring_cache_fname(r))[1]
+             for r in (2.0, 1.05)}
+    common = dict(alpha=alpha, full_set_size=450, num_mc_samples=200)
+    with torch.no_grad():
+        preds = {"weight": ScalableLLAPredictor(state, Z, full_set_size=450, range_clip_min=1.0),
+                 "cov": ScalableLLAPredictor(state, Z, full_set_size=450, range_clip_min=1.0,
+                                             method="cov"),
+                 "dense": DenseLLAPredictor(state, Z, full_set_size=450)}
+        recs = {name: eval_dataset_extended(state, test, Z, predictor=pred,
+                                            generator=torch.Generator(device="cuda").manual_seed(0),
+                                            **common) for name, pred in preds.items()}
+        auroc = {r: auroc_ood(state, recs["weight"]["probs"], loader, Z, predictor=preds["weight"],
+                              generator=torch.Generator(device="cuda").manual_seed(1), **common)
+                 for r, loader in rings.items()}
+    rec = recs["weight"]
+    print(f"golden banana, weight path (alpha {alpha}, S = 200; {smi}): nll={rec['nll']:.5f} "
+          f"ece={rec['ece']:.5f} acc={rec['acc']:.5f} auroc r=2.0 {auroc[2.0]:.5f} "
+          f"r=1.05 {auroc[1.05]:.5f}; Gram eigenvalues above the rank_tol mask "
+          f"{_kept(preds['weight'].lam)} of {preds['weight'].d}")
+    print(f"dense predictive nll={recs['dense']['nll']:.5f} (the reference's recorded dense "
+          f"IP-LLA 0.2008); cov predictive nll={recs['cov']['nll']:.5f} beside the weight "
+          f"path's {rec['nll']:.5f} (self-check share {preds['cov'].cov_check_frac:.4f})")
+    failed = [f"{k} {rec[k]:.5f} not in {c} +- {w}" for k, (c, w) in GOLDEN_BAND.items()
+              if not abs(rec[k] - c) <= w]
+    if not auroc[2.0] >= 0.97:
+        failed.append(f"auroc r=2.0 {auroc[2.0]:.5f} < 0.97")
+    if not abs(auroc[1.05] - 0.892) <= 0.05:
+        failed.append(f"auroc r=1.05 {auroc[1.05]:.5f} not in 0.892 +- 0.05")
+    if failed:
+        raise AssertionError(f"golden banana band (a): {failed}")
+
+
+def phase_toy_sine(workdir: Path, map_s_per_step: float, smi: str) -> dict:
+    """regressor_sine.yml through ``cli.main_toy full_pipeline`` (map.epochs cut
+    where as shipped would take more than SINE_MAP_BUDGET_S at banana's MAP
+    step time), then ``cli.evaluate`` with the weight and dense predictives."""
+    print("== phase 25: the sine regressor (cli.main_toy full_pipeline, then cli.evaluate)",
+          flush=True)
+    from laplace_inducing_points_tpu_torch.cli import evaluate, main_toy
+    from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
+    dirs, common = _toy_dirs(workdir, "sine")
+    shipped = load_experiment_config(TOY["sine"])["optimization"]["map"]
+    steps_per_epoch = int(0.8 * 300) // shipped["batch_size"]
+    projected = shipped["epochs"] * steps_per_epoch * map_s_per_step
+    config = TOY["sine"]
+    if projected > SINE_MAP_BUDGET_S:
+        epochs = max(1, int(SINE_MAP_BUDGET_S / (steps_per_epoch * map_s_per_step)))
+        config = _cut_config(workdir, TOY["sine"], {shipped["epochs"]: epochs},
+                             "regressor_sine_map_cut.yml")
+        print(f"map.epochs cut {shipped['epochs']} -> {epochs}: as shipped "
+              f"{shipped['epochs'] * steps_per_epoch} steps would take ~{projected:.0f} s at "
+              f"banana's {map_s_per_step:.5f} s per step")
+    else:
+        print(f"as shipped: {shipped['epochs']} MAP epochs (~{projected:.0f} s projected)")
+    data = ["--dataset", "sine", "--config", config]
+    _reset_counts()
+    result = _quiet(main_toy.main, ["full_pipeline", *data, "--fig_dir", dirs["fig"], *common],
+                    workdir / "toy_sine.log")
+    records = {name: _quiet(evaluate.main, [*data, "--iters", "1", *flags, *common],
+                            workdir / f"toy_sine_eval_{name}.log")[0]
+               for name, flags in (("weight", ["--scalable", "--predictive", "weight"]),
+                                   ("dense", []))}
+    launches = _read_counts()
+    mp, ind, res = result["map"], result["inducing"], result["regression_1d"]
+    print(f"MAP: {mp['steps']} steps, warm median {mp['s_per_step']:.5f} s per step ({smi}); "
+          f"Gaussian NLL loss {mp['loss_head']:.4f} -> {mp['loss_tail']:.4f} (means of the "
+          f"first and last 10 steps); logvar {mp['logvar']:.5f}")
+    print(f"Z: {ind['steps']} gram steps, warm median {ind['s_per_step']:.5f} s per step; "
+          f"max |Z - Z0| = {ind['z_moved']:.4g}; dense 1-D predictive std with X "
+          f"{res['full_std'].min():.4g}..{res['full_std'].max():.4g}, with Z "
+          f"{res['ip_std'].min():.4g}..{res['ip_std'].max():.4g}")
+    for name, rec in records.items():
+        print(f"evaluate {name}: {_eval_line(rec)}")
+    if not (math.isfinite(mp["loss_tail"]) and mp["loss_tail"] < mp["loss_head"]):
+        raise AssertionError(f"sine MAP loss did not fall: {mp}")
+    if not abs(mp["logvar"]) > 1e-3:
+        raise AssertionError(f"sine logvar did not move from 0: {mp['logvar']}")
+    if not (all(np.all(np.isfinite(v)) for v in res.values()) and np.all(res["ip_std"] > 0)):
+        raise AssertionError("sine 1-D predictive not finite or its variance not positive")
+    if not all(math.isfinite(rec["nll"]) for rec in records.values()):
+        raise AssertionError(f"sine evaluation: {records}")
+    _check_launches("sine", TOY_KERNELS, launches)
+    return {"launches": launches}
+
+
+def phase_toy_restarts(workdir: Path, banana_dirs: dict, smi: str) -> dict:
+    """(a) classifier_xor.yml's 4 restarts through ``cli.main_toy train_inducing``
+    on a MAP of XOR_MAP_CUT epochs; (b) ``train_inducing --scalable`` (the
+    stochastic objective) on phase 23's banana MAP for 5 Z steps, B4 launched
+    at D = 626."""
+    print("== phase 26: restarts (xor) and the stochastic toy path (banana --scalable)",
+          flush=True)
+    from laplace_inducing_points_tpu_torch.cli import main_toy
+    (old, new), = XOR_MAP_CUT.items()
+    config = _cut_config(workdir, TOY["xor"], XOR_MAP_CUT, "classifier_xor_map_cut.yml")
+    dirs, common = _toy_dirs(workdir, "xor")
+    data = ["--dataset", "xor", "--config", config]
+    _quiet(main_toy.main, ["train_map", *data, "--fig_dir", dirs["fig"], *common],
+           workdir / "toy_xor_map.log")
+    result = _quiet(main_toy.main, ["train_inducing", *data, *common],
+                    workdir / "toy_xor_ind.log")
+    ind = result["inducing"]
+    kls = ind["restart_kls"]
+    print(f"xor (map.epochs cut {old} -> {new}): {len(kls)} restarts of {ind['steps'] // len(kls)} "
+          f"gram steps, full-set KLs {', '.join(f'{v:.6g}' for v in kls)}; selected "
+          f"{ind['full_set_kl']:.6g}; warm median {ind['s_per_step']:.5f} s per step ({smi})")
+    if not (len(kls) == 4 and ind["full_set_kl"] == min(kls)):
+        raise AssertionError(f"restart selection: {kls} -> {ind['full_set_kl']}")
+    cut = _cut_config(workdir, TOY["banana"], {500: 5}, "classifier_banana_ip_cut.yml")
+    _reset_counts()
+    result = _quiet(main_toy.main, ["train_inducing", "--scalable", "--dataset", "banana",
+                                    "--config", cut, "--device", "cuda",
+                                    "--ckpt_map", banana_dirs["map"],
+                                    "--ckpt_induc", str(workdir / "toy_banana_scalable_ind"),
+                                    "--data_dir", banana_dirs["data"]],
+                    workdir / "toy_banana_scalable.log")
+    launches = _read_counts()
+    ind = result["inducing"]
+    print(f"banana --scalable: {ind['steps']} {ind['objective']} steps (ip.epochs cut 500 -> "
+          f"5), warm median {ind['s_per_step']:.4f} s per step ({smi}); loss "
+          f"{ind['loss_first']:.6g} -> {ind['loss_last']:.6g}; max |Z - Z0| = "
+          f"{ind['z_moved']:.4g}")
+    if not (ind["objective"] == "stochastic" and ind["z_moved"] > 0
+            and math.isfinite(ind["loss_last"])):
+        raise AssertionError(f"banana stochastic Z: {ind}")
+    _check_launches("banana --scalable", BANANA_STOCHASTIC, launches)
+    return {"launches": launches}
+
+
+def phase_lenet5_cov(workdir: Path, smi: str) -> None:
+    """``cli.evaluate --scalable --predictive cov`` at LeNet5's full width on
+    phase 7's MAP and Z (2 test batches of 256, two repetitions, jac_block 64),
+    beside ``--predictive weight`` on the same batches."""
+    print("== phase 27: the cov predictive at LeNet5's full width (phase 7's MAP and Z)",
+          flush=True)
+    from laplace_inducing_points_tpu_torch.cli import evaluate
+    common = ["--dataset", "mnist", "--config", _train_config(workdir), "--scalable",
+              "--iters", "2", "--max_batches", "2", "--device", "cuda", "--ckpt_map",
+              str(workdir / "train_map"), "--ckpt_induc", str(workdir / "train_ind"),
+              "--data_dir", str(workdir / "data")]
+    peaks, records = {}, {}
+    for name, flags in (("cov", ["--predictive", "cov", "--jac_block", "64"]),
+                        ("weight", ["--predictive", "weight"])):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            records[name] = _quiet(evaluate.main, [*common, *flags],
+                                   workdir / f"lenet5_{name}.log")
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        for rec in records[name]:
+            if not all(math.isfinite(rec[k]) for k in ("nll", "acc", "brier", "ece")):
+                raise AssertionError(f"LeNet5 {name}: {rec}")
+            print(f"LeNet5 {name} iteration {rec['iter']}: {_eval_line(rec)}; peak memory "
+                  f"{peaks[name]:.2f} GiB ({smi})", flush=True)
+        if name == "cov":
+            fired = [str(w.message) for w in caught if "covariance-assembly" in str(w.message)]
+    cov, weight = records["cov"], records["weight"]
+    print(f"cov self-check at alpha {cov[0]['alpha']}: share outside the 3x band "
+          f"{cov[0]['cov_check_frac']:.4f}, warning {'fired' if fired else 'silent'}; "
+          f"statistics cache hits on the second repetition {cov[1]['stats_cache_hits']}")
+    print(f"NLL gap cov - weight on the same batches and generator: "
+          f"{cov[0]['nll'] - weight[0]['nll']:+.5f} and {cov[1]['nll'] - weight[1]['nll']:+.5f}; "
+          f"the weight path's gap between its two generators "
+          f"{weight[1]['nll'] - weight[0]['nll']:+.5f}")
+    if cov[1]["stats_cache_hits"] != cov[1]["batches"]:
+        raise AssertionError(f"cov statistics were not reused: {cov[1]}")
+
+
+def run_toy(workdir: Path, smi: str) -> dict:
+    """Phases 22-27; the kernels' rows at the toy shapes and the launches of
+    the banana and sine paths."""
+    rows = phase_toy_kernels()
+    banana = phase_toy_banana(workdir, smi)
+    phase_golden_banana(smi)
+    sine = phase_toy_sine(workdir, banana["map_s_per_step"], smi)
+    stochastic = phase_toy_restarts(workdir, banana["dirs"], smi)
+    phase_lenet5_cov(workdir, smi)
+    launches = {"banana": {**{n: banana["launches"][n] for n in TOY_KERNELS},
+                           **{n: stochastic["launches"][n] for n in BANANA_STOCHASTIC}},
+                "sine": {n: sine["launches"][n] for n in TOY_KERNELS}}
+    return {"rows": rows, "launches": launches}
 
 
 def main() -> int:
@@ -2337,6 +2798,8 @@ def main() -> int:
         del resnet["state"], resnet["Z"], resnet["X"]
         torch.cuda.empty_cache()
         matfree = run_matfree(Path(tmp), smi)
+        torch.cuda.empty_cache()
+        toy = run_toy(Path(tmp), smi)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
               "replaces": KERNELS[name][1], "launches": launches[name],
@@ -2390,6 +2853,16 @@ def main() -> int:
               for label, names in (("matfree1k", MATFREE_KERNELS),
                                    ("matheron1k", MATHERON_KERNELS))
               for name in names]
+    # the toy slice (phases 22-26): each kernel timed at the banana and sine
+    # shapes, launches from that path's runs (B3's backward and B4 from banana's
+    # stochastic run, phase 26)
+    for label, launches in toy["launches"].items():
+        for name, n in launches.items():
+            row = toy["rows"][label][name]
+            source, replaces = _toy_source(name, row)
+            table.append({"name": f"{name}@{label}", "route": "cuda", "source": source,
+                          "replaces": replaces, "launches": n,
+                          **{k: row[k] for k in keys}})
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

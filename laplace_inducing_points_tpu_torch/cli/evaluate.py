@@ -1,15 +1,16 @@
 """Evaluation CLI: NLL / ACC / Brier / ECE (+ OOD AUROC) with timing.
 
-Counterpart of ``laplace_inducing_points_tpu/cli/evaluate.py`` for the
-scalable predictives (``--scalable --predictive weight`` and ``matfree``):
-loads MAP weights (``{ckpt_map}/map_{dataset}.pt``, see
-``utils.checkpoint.save_params``) and the inducing points
-(``{ckpt_induc}/ind_{dataset}_{epochs}.npz``), builds the posterior factor
-(the matfree path: its Nyström sketch) once, and runs timed evaluation
-repetitions and an optional OOD pass. The matfree knobs come from the flags,
-else the config's ``sampling.cg_*``/``precond_*``. The ``cov`` predictive,
-the dense predictive and the toy datasets are not ported yet (ROADMAP,
-Queue A).
+Counterpart of ``laplace_inducing_points_tpu/cli/evaluate.py``: loads MAP
+weights (``{ckpt_map}/map_{dataset}.pt``, see ``utils.checkpoint.save_params``)
+and the inducing points (``{ckpt_induc}/ind_{dataset}_{epochs}.npz``), builds
+the posterior factor once (``--scalable --predictive weight`` or ``cov``: rows,
+Gram and eigh; ``matfree``: its Nyström sketch; without ``--scalable``: the
+dense D × D GGN), and runs timed evaluation repetitions and an optional OOD
+pass. The scale datasets and the toy ones (``TOY_DATASETS``, read through
+``data.toy``; the OOD ring at ``--ood_ring_radius``) are both served. The
+matfree knobs come from the flags, else the config's
+``sampling.cg_*``/``precond_*``; the cov path's ``--jac_block`` from the flag,
+else ``sampling.jac_block``. ``--mesh`` is not ported (ROADMAP, Queue A).
 
 Usage:
     python -m laplace_inducing_points_tpu_torch.cli.evaluate \
@@ -27,26 +28,55 @@ import time
 
 import torch
 
+from laplace_inducing_points_tpu_torch.data.loader import ArrayDataset, make_dataloaders
 from laplace_inducing_points_tpu_torch.data.scale import DATASET_SHAPES, get_dataloaders
+from laplace_inducing_points_tpu_torch.data.toy import (TOY_DATASETS, ensure_toy_npz,
+                                                        load_dataset, ring_cache_fname,
+                                                        train_test_val_split)
 from laplace_inducing_points_tpu_torch.evaluation.harness import (auroc_ood,
                                                                   eval_dataset_extended)
-from laplace_inducing_points_tpu_torch.inference.lla import ScalableLLAPredictor
+from laplace_inducing_points_tpu_torch.inference.lla import (DenseLLAPredictor,
+                                                             ScalableLLAPredictor)
 from laplace_inducing_points_tpu_torch.models.registry import get_model
-from laplace_inducing_points_tpu_torch.models.state import ModelState
-from laplace_inducing_points_tpu_torch.utils.checkpoint import (load_array,
-                                                                load_batch_stats,
-                                                                load_params,
-                                                                load_run_meta)
+from laplace_inducing_points_tpu_torch.utils.checkpoint import (load_array, load_run_meta,
+                                                                load_state)
 from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
 from laplace_inducing_points_tpu_torch.utils.device import resolve_device, set_f32_policy
 
 EVAL_SEED = 155858
+DATASETS = sorted({*DATASET_SHAPES, *TOY_DATASETS})
+
+
+def toy_loaders(name: str, batch_size: int, data_dir: str, data_cfg=None, seed: int = 0,
+                **gen_kwargs):
+    """``(train, test, val)`` loaders of a toy dataset's 80/10/10 split, read
+    at the generation parameters of ``data_cfg`` (a config's ``data:``) and
+    ``gen_kwargs``."""
+    data_cfg = dict(data_cfg or {})
+    data_cfg.update(gen_kwargs)
+    x, y = load_dataset(ensure_toy_npz(name, data_dir=data_dir, n=data_cfg.pop("n", 512),
+                                       noise=data_cfg.pop("noise", 0.05),
+                                       seed=data_cfg.pop("seed", 42), **data_cfg))
+    tr, te, va = train_test_val_split(x, y)
+    return make_dataloaders(ArrayDataset(*tr), ArrayDataset(*te), ArrayDataset(*va),
+                            batch_size, seed=seed)
+
+
+def _loaders(name: str, batch_size: int, data_dir: str, data_cfg=None, **gen_kwargs):
+    if name in TOY_DATASETS:
+        return toy_loaders(name, batch_size, data_dir, data_cfg, **gen_kwargs)
+    # the train split is read for its size only: no augmentation
+    return get_dataloaders(name, batch_size, aug=False, root=data_dir)
 
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--dataset", required=True, choices=sorted(DATASET_SHAPES))
-    p.add_argument("--ood-dataset", default=None, choices=sorted(DATASET_SHAPES))
+    p.add_argument("--dataset", required=True, choices=DATASETS)
+    p.add_argument("--ood-dataset", default=None, choices=DATASETS)
+    p.add_argument("--ood_ring_radius", type=float, default=None,
+                   help="when --ood-dataset is 'ring', read it at this radius "
+                        "(ring_r<radius>.npz; 2.0 and 1.05 are committed). "
+                        "Default: the generator's defaults (ring.npz)")
     p.add_argument("--config", required=True)
     p.add_argument("--ckpt_map", default="checkpoint/map/")
     p.add_argument("--ckpt_induc", default="checkpoint/ind/")
@@ -63,10 +93,17 @@ def build_parser():
     p.add_argument("--predictive", choices=["weight", "cov", "matfree"],
                    default=None,
                    help="scalable predictive path: 'weight' pushes each draw of "
-                        "the eigh factor through a jvp; 'matfree' draws Matheron "
-                        "samples by Nystrom-preconditioned CG, no d_z x D factor "
-                        "and no eigh (an exact sampler: --range_clip is ignored); "
-                        "'cov' is not ported. Default: config sampling.predictive")
+                        "the eigh factor through a jvp; 'cov' builds per-image "
+                        "statistics with K backward passes and samples each "
+                        "image's K-dim Gaussian (the same marginals; the "
+                        "statistics are cached across repetitions); 'matfree' "
+                        "draws Matheron samples by Nystrom-preconditioned CG, no "
+                        "d_z x D factor and no eigh (an exact sampler: "
+                        "--range_clip is ignored). Default: config "
+                        "sampling.predictive")
+    p.add_argument("--jac_block", type=int, default=None,
+                   help="cov predictive: images per Jacobian block (bounds the "
+                        "(block, K, D) Jacobians); default config sampling.jac_block")
     p.add_argument("--cg_tol", type=float, default=None,
                    help="matfree predictive: CG tolerance (default config "
                         "sampling.cg_tol, 1e-4)")
@@ -131,9 +168,6 @@ def main(argv=None) -> list[dict]:
     print(set_f32_policy())
     print(f"[device] {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-    if not args.scalable:
-        raise NotImplementedError("the dense LLA predictive is not ported yet "
-                                  "(ROADMAP, Queue A): pass --scalable")
     if args.mesh:
         raise NotImplementedError("--mesh is not ported yet (ROADMAP, Queue A)")
     cfg = load_experiment_config(args.config)
@@ -141,10 +175,7 @@ def main(argv=None) -> list[dict]:
     opt_cfg = cfg["optimization"]
     ip_cfg = opt_cfg["ip"]
     sampling_cfg = cfg["sampling"]
-    predictive = args.predictive or sampling_cfg["predictive"]
-    if predictive == "cov":
-        raise NotImplementedError(f"predictive {predictive!r} is not ported yet "
-                                  "(ROADMAP, Queue A)")
+    predictive = (args.predictive or sampling_cfg["predictive"]) if args.scalable else "dense"
     # alpha precedence: CLI flag > pipeline-recorded alpha > config
     meta = load_run_meta(args.ckpt_induc, f"ind_{args.dataset}")
     if args.alpha_ip is not None:
@@ -156,52 +187,55 @@ def main(argv=None) -> list[dict]:
     print(f"alpha={alpha} ({alpha_src})")
 
     batch_size = opt_cfg["map"]["batch_size"]
-    # the train split is read for its size only: no augmentation
-    train_loader, test_loader, _ = get_dataloaders(args.dataset, batch_size, aug=False,
-                                                   root=args.data_dir)
+    train_loader, test_loader, _ = _loaders(args.dataset, batch_size, args.data_dir,
+                                            data_cfg=cfg.get("data"))
     ood_loader = None
     if args.ood_dataset:
-        _, ood_loader, _ = get_dataloaders(args.ood_dataset, batch_size, aug=False,
-                                           root=args.data_dir)
+        # the test split for every kind of dataset, toys included
+        ood_kwargs = {}
+        if args.ood_dataset == "ring" and args.ood_ring_radius is not None:
+            ood_kwargs = {"radius": args.ood_ring_radius,
+                          "fname": ring_cache_fname(args.ood_ring_radius)}
+        _, ood_loader, _ = _loaders(args.ood_dataset, batch_size, args.data_dir, **ood_kwargs)
     full_set_size = opt_cfg["full_set_size"] or len(train_loader.dataset)
 
-    model = get_model(model_cfg, DATASET_SHAPES[args.dataset][0]).to(device)
-    flat, spec, logvar = load_params(args.ckpt_map, f"map_{args.dataset}")
-    if logvar is not None:
-        with torch.no_grad():
-            model.logvar.fill_(logvar)
-    stats = load_batch_stats(args.ckpt_map, f"map_{args.dataset}")
-    state = ModelState(model, flat.to(device), model_kind=model_cfg["type"],
-                       batch_stats={key: t.to(device) for key, t in stats.items()})
-    if spec != state.spec:
-        raise ValueError(f"MAP file layout {spec.names} does not match the "
-                         f"model's {state.spec.names}")
+    input_shape = train_loader.dataset.x.shape[1:]
+    model = get_model(model_cfg, input_shape).to(device)
+    state = load_state(args.ckpt_map, f"map_{args.dataset}", model, model_cfg["type"], device)
     Z = torch.as_tensor(load_array(args.ckpt_induc, f"ind_{args.dataset}",
                                    ip_cfg["epochs"]), dtype=torch.float32).to(device)
 
     range_clip = args.range_clip if args.range_clip > 0 else None
     sample_block = (args.sample_block if args.sample_block is not None
                     else sampling_cfg["sample_block"])
-    matfree = {}
+    knobs = {}
     if predictive == "matfree":
-        matfree = matfree_knobs(sampling_cfg, args)
-        print(f"[predictor] predictive method: matfree {matfree}")
+        knobs = matfree_knobs(sampling_cfg, args)
+        print(f"[predictor] predictive method: matfree {knobs}")
         if range_clip is not None:
             print("[predictor] NOTE: the matfree path's Matheron sampler is exact: "
                   "--range_clip is ignored")
+    if predictive == "cov":
+        knobs = {"jac_block": (args.jac_block if args.jac_block is not None
+                               else sampling_cfg["jac_block"])}
+        print(f"[predictor] predictive method: cov {knobs}")
     with torch.no_grad():
         t0 = time.perf_counter()
-        predictor = ScalableLLAPredictor(state, Z, full_set_size=full_set_size,
-                                         example_block=ip_cfg["example_block"],
-                                         range_clip_min=range_clip,
-                                         sample_block=sample_block,
-                                         method=predictive, **matfree)
+        if predictive == "dense":
+            predictor = DenseLLAPredictor(state, Z, full_set_size=full_set_size)
+        else:
+            predictor = ScalableLLAPredictor(state, Z, full_set_size=full_set_size,
+                                             example_block=ip_cfg["example_block"],
+                                             range_clip_min=range_clip,
+                                             sample_block=sample_block,
+                                             method=predictive, **knobs)
         _sync(device)
         factor_s = time.perf_counter() - t0
-    print(f"[predictor] posterior factor built in {factor_s:.3f} s "
-          f"(M={Z.shape[0]}, d={predictor.d}, D={state.spec.num_params}"
-          + (f", Nystrom rank {predictor.nys[0].shape[1]}" if matfree and predictor.nys
-             else "") + ")")
+    print(f"[predictor] posterior factor ({predictive}) built in {factor_s:.3f} s "
+          f"(M={Z.shape[0]}, D={state.spec.num_params}"
+          + (f", d={predictor.d}" if predictive != "dense" else ", the D x D GGN")
+          + (f", Nystrom rank {predictor.nys[0].shape[1]}"
+             if predictive == "matfree" and predictor.nys is not None else "") + ")")
 
     n_batches = len(test_loader)
     if args.max_batches:
@@ -227,6 +261,9 @@ def main(argv=None) -> list[dict]:
                   "per_batch_s": dt / n_batches}
         if predictive == "matfree":
             record["cg_rel_residual"] = predictor.last_cg_residual
+        if predictive == "cov":
+            record.update(stats_cache_hits=predictor.cache_hits,
+                          cov_check_frac=predictor.cov_check_frac)
         if "acc" in rec:
             print(f"\nTest NLL   : {rec['nll']:8.5f}"
                   f"\nTest Acc   : {rec['acc'] * 100:8.3f} %"

@@ -1,5 +1,5 @@
 """Scale-experiment trainer: MAP weights, then inducing points Z on the exact
-Gram KL or its stochastic (Hutch++ + SLQ) estimate.
+Gram KL, its stochastic (Hutch++ + SLQ) estimate or the dense D × D KL.
 
 Counterpart of ``laplace_inducing_points_tpu/cli/train_scale.py:83-268``: the
 three modes, MAP with the cosine schedule (BatchNorm statistics kept with the
@@ -9,8 +9,8 @@ evidence maximization during the MAP (``--alpha_mode evidence``,
 search on the initial Z (``training.grid_search.grid_search_alpha``: log₁₀ α
 from 1 to 3, 8 coarse points and one refinement, on the config's
 predictive; the matfree one with the config's ``sampling.cg_*`` and
-``precond_*``), Z training with the ``gram``, ``stochastic`` or
-``stochastic_matfree`` objective (the stochastic ones with the config's
+``precond_*``), Z training with the ``dense`` (small models), ``gram``,
+``stochastic`` or ``stochastic_matfree`` objective (the stochastic ones with the config's
 ``ip.st_samples``, ``ip.slq_samples``, ``ip.slq_num_matvecs`` and probes
 seeded from ``ip.seed``; the matfree one also with ``ip.cg_tol``,
 ``ip.cg_maxiter``, ``ip.precond_rank``, ``ip.precond_power`` and
@@ -20,13 +20,14 @@ and the checkpoints that ``cli.evaluate`` reads (the MAP weights and
 statistics as ``{ckpt_map}/map_{dataset}.pt``, Z as
 ``{ckpt_induc}/ind_{dataset}_{epochs}.npz`` with the run's meta beside it:
 the α and where it came from, ``cli``, ``evidence`` or ``grid``).
-``--continue``, ``--profile``, the ``dense`` and ``gram_chunked`` objectives
-and a mesh are not ported yet and raise (ROADMAP, Queue A).
+``--continue``, ``--profile`` and a mesh are not ported yet and raise
+(ROADMAP, Queue A); so does the ``gram_chunked`` objective, a compile
+workaround of the reference (ROADMAP, "Not to port").
 
 The MAP weights start from a seeded numpy lecun-normal init in the JAX layout
 (``core.params.lecun_normal_params`` of ``model.seed``; BatchNorm scale one,
 statistics mean 0 and var 1): the Flax init stream cannot be reproduced.
-Shuffles use numpy's generator.
+Shuffles are the JAX package's (``data.loader``).
 
 Usage:
     python -m laplace_inducing_points_tpu_torch.cli.train_scale full_pipeline \
@@ -56,9 +57,8 @@ from laplace_inducing_points_tpu_torch.training.inducing import (OBJECTIVES,
                                                                  matfree_cg_healthcheck,
                                                                  train_inducing_points)
 from laplace_inducing_points_tpu_torch.training.map import cosine_lr, train_map
-from laplace_inducing_points_tpu_torch.utils.checkpoint import (load_batch_stats, load_params,
-                                                                save_array, save_params,
-                                                                save_run_meta)
+from laplace_inducing_points_tpu_torch.utils.checkpoint import (load_state, save_array,
+                                                                save_params, save_run_meta)
 from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
 from laplace_inducing_points_tpu_torch.utils.device import resolve_device, set_f32_policy
 
@@ -83,8 +83,8 @@ def build_parser():
     p.add_argument("--objective", default=None,
                    choices=["dense", "gram", "gram_chunked", "stochastic",
                             "stochastic_matfree"],
-                   help="'gram', 'stochastic' and 'stochastic_matfree' are ported; "
-                        "default: config ip.objective")
+                   help="all but 'gram_chunked' are ported ('dense' for small "
+                        "models only); default: config ip.objective")
     p.add_argument("--ckpt_map", default="checkpoint/map/")
     p.add_argument("--ckpt_induc", default="checkpoint/ind/")
     p.add_argument("--data_dir", default="data/")
@@ -105,14 +105,15 @@ def build_parser():
 
 def _refuse_unported(args) -> None:
     unported = {
-        "--continue": args.resume,
-        "--profile": args.profile is not None,
-        "--mesh": args.mesh,
-        f"--objective {args.objective}": args.objective not in PORTED_OBJECTIVES,
+        "--continue": (args.resume, "Queue A"),
+        "--profile": (args.profile is not None, "Queue A"),
+        "--mesh": (args.mesh, "Queue A"),
+        f"--objective {args.objective}": (args.objective not in PORTED_OBJECTIVES,
+                                          "'Not to port'"),
     }
-    for flag, asked in unported.items():
+    for flag, (asked, where) in unported.items():
         if asked:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP, Queue A)")
+            raise NotImplementedError(f"{flag} is not ported (ROADMAP, {where})")
 
 
 def _sync(device: torch.device) -> None:
@@ -120,7 +121,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-class _StepClock:
+class StepClock:
     """Host seconds of each step, the device synchronised at each tick."""
 
     def __init__(self, device: torch.device):
@@ -152,7 +153,7 @@ def _train_map(args, cfg, model, device, train_loader, test_loader,
         lr = cosine_lr(map_cfg["lr"], map_cfg["epochs"], len(train_loader))
     else:
         lr = map_cfg["lr"]
-    clock, losses = _StepClock(device), []
+    clock, losses = StepClock(device), []
 
     def callback(step, loss):
         clock.tick()
@@ -177,17 +178,6 @@ def _train_map(args, cfg, model, device, train_loader, test_loader,
     save_params(state.flat_params, state.spec, args.ckpt_map, f"map_{args.dataset}",
                 batch_stats=state.batch_stats)
     return state, stats
-
-
-def _load_map(args, cfg, model, device) -> ModelState:
-    flat, spec, _ = load_params(args.ckpt_map, f"map_{args.dataset}")
-    stats = load_batch_stats(args.ckpt_map, f"map_{args.dataset}")
-    state = ModelState(model, flat.to(device), model_kind=cfg["model"]["type"],
-                       batch_stats={key: t.to(device) for key, t in stats.items()})
-    if spec != state.spec:
-        raise ValueError(f"MAP file layout {spec.names} does not match the "
-                         f"model's {state.spec.names}")
-    return state
 
 
 def main(argv=None) -> dict:
@@ -217,7 +207,8 @@ def main(argv=None) -> dict:
         if args.mode == "train_map":
             return result
     else:
-        state = _load_map(args, cfg, model, device)
+        state = load_state(args.ckpt_map, f"map_{args.dataset}", model, cfg["model"]["type"],
+                           device)
 
     # inducing points: init from a training batch of size m (no augmentation)
     m = ip_cfg["m"]
@@ -244,12 +235,12 @@ def main(argv=None) -> dict:
     result["alpha"] = {"alpha_ip": float(alpha_ip), "alpha_src": alpha_src, "grid": grid}
     objective = args.objective or ip_cfg["objective"]
     if objective not in OBJECTIVES:
-        raise NotImplementedError(f"objective {objective!r} is not ported yet "
-                                  "(ROADMAP, Queue A)")
+        raise NotImplementedError(f"objective {objective!r} is not ported (ROADMAP, "
+                                  "'Not to port')")
 
     callback, rows = None, []
     if args.train_log:
-        clock = _StepClock(device)
+        clock = StepClock(device)
 
         def callback(step, _Z, loss):
             row = {"step": step, "loss": loss, "seconds": clock.tick()}

@@ -7,10 +7,11 @@ Counterpart of ``laplace_inducing_points_tpu/core/operators.py``: ``pdot``
 ``BlockedWFactor`` as one class built by ``make_w_factor`` (``:186-493``,
 ``:647``), ``dense_wt`` (``:496-532``) with its pullback in ``Z`` (the
 reference's ``_rows_chunk_vjp``, ``training/inducing.py:591``),
-``ggn_matmat_materialized`` (``:625``) on the ``ggn_sweep`` kernel and
-``ensure_symmetry`` (``:702``). ``GGNOperator``, ``make_ggn_operator``,
-``make_curvature_operator`` and ``curvature_dense`` serve the dense paths,
-which are not ported yet (ROADMAP, Queue A).
+``ggn_matmat_materialized`` (``:625``) on the ``ggn_sweep`` kernel,
+``predictive_jac_stats`` (``:535-570``, the ``cov`` predictive's per-image
+statistics), the dense paths' ``GGNOperator``, ``dense_wt_from_lin``,
+``make_ggn_operator``, ``make_curvature_operator`` and ``curvature_dense``
+(``:577-700``) and ``ensure_symmetry`` (``:702``).
 
 Operator glossary (D = #params, M = #points, K = #outputs, d = M·K):
 ``W : R^{M×K} -> R^D``, ``W U = c · Σ_i J_iᵀ L_i U_i``; ``Wᵀ : R^D -> R^{M×K}``,
@@ -75,6 +76,12 @@ class Linearization:
     jvp: Callable[[torch.Tensor], torch.Tensor]      # (D,) -> (M, K)
     vjp: Callable[[torch.Tensor], torch.Tensor]      # (M, K) -> (D,)
     logvar: torch.Tensor | float      # scalar for regressors, 0 otherwise
+    state: object = field(repr=False, default=None)
+    inputs: Optional[torch.Tensor] = field(repr=False, default=None)   # (M, ...) points
+
+    @property
+    def num_points(self) -> int:
+        return self.f0.shape[0]
 
 
 def _vjp_of_outputs(f: Callable, flat: torch.Tensor,
@@ -110,7 +117,7 @@ def linearize_model(state, Z: torch.Tensor) -> Linearization:
         return vjp(f, flat)[1](ct)[0]
 
     return Linearization(model_kind=state.model_kind, flat_params=flat, f0=f(flat),
-                         jvp=jvp_fn, vjp=vjp_fn, logvar=state.logvar)
+                         jvp=jvp_fn, vjp=vjp_fn, logvar=state.logvar, state=state, inputs=Z)
 
 
 def row_fn(state) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -124,20 +131,27 @@ def row_fn(state) -> Callable[[torch.Tensor], torch.Tensor]:
     differentiated too).
     """
     flat = state.flat_params
-
-    def f_single(flat_p: torch.Tensor, zi: torch.Tensor):
-        out = model_outputs(state, flat_p, zi[None])[0]
-        return out, out
-
-    jac = vmap(jacrev(f_single, has_aux=True), in_dims=(None, 0))
+    jac = jacobian_fn(state)
 
     def rows(z: torch.Tensor) -> torch.Tensor:
-        J, f0 = jac(flat, z)                                      # (b, K, D), (b, K)
+        J, f0 = jac(z)                                            # (b, K, D), (b, K)
         LtJ = lh.sqrt_h_t_apply(state.model_kind, f0[:, None, :],
                                 J.transpose(1, 2), state.logvar)  # (b, D, K)
         return LtJ.transpose(1, 2).reshape(-1, flat.shape[0])     # (b·K, D)
 
     return rows
+
+
+def jacobian_fn(state) -> Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]:
+    """``jac(x) -> (J (b, K, D), f0 (b, K))``: per-example Jacobians of the
+    outputs at ``state.flat_params`` (a vmapped ``jacrev``, K backward passes
+    an example) and the primal outputs."""
+    def f_single(flat_p: torch.Tensor, xi: torch.Tensor):
+        out = model_outputs(state, flat_p, xi[None])[0]
+        return out, out
+
+    jac = vmap(jacrev(f_single, has_aux=True), in_dims=(None, 0))
+    return lambda x: jac(state.flat_params, x)
 
 
 def _blocks(M: int, example_block: Optional[int]) -> list[slice]:
@@ -321,6 +335,88 @@ def ggn_matmat_materialized(state, Z: torch.Tensor, V: torch.Tensor,
     if R is None:
         R = dense_wt(state, Z, example_block=example_block)    # (M·K, D)
     return ggn_sweep(V, R, N / M)
+
+
+def predictive_jac_stats(state, x: torch.Tensor, R: torch.Tensor, *,
+                         jac_block: Optional[int] = None):
+    """Per-image predictive statistics ``(f0 (B, K), JJᵀ (B, K, K), A = J Rᵀ
+    (B, K, d_z))``.
+
+    The IP-LLA predictive at one input depends on its Jacobian ``J (K, D)``
+    only through ``J Jᵀ`` and ``J Rᵀ``; both are α-independent. ``jac_block``
+    builds the Jacobians that many images at a time, so only
+    ``(block, K, D)`` of them are alive at once.
+    """
+    jac = jacobian_fn(state)
+    f0s, JJts, As = [], [], []
+    for s in _blocks(x.shape[0], jac_block):
+        J, f0 = jac(x[s])                                         # (b, K, D)
+        b, K, D = J.shape
+        f0s.append(f0)
+        JJts.append(pdot(J, J.transpose(1, 2)))
+        As.append(pdot(J.reshape(b * K, D), R.T).reshape(b, K, -1))
+        del J
+    return torch.cat(f0s), torch.cat(JJts), torch.cat(As)
+
+
+# ---------------------------------------------------------------------------
+# the dense GGN and curvature (small models: D × D)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class GGNOperator:
+    """``v ↦ c² Σ_i J_iᵀ H_i J_i v``: one jvp, the loss Hessian and one vjp
+    of the batched network."""
+    lin: Linearization
+    scale: float                      # N/M recalibration (c²)
+
+    @property
+    def num_params(self) -> int:
+        return self.lin.flat_params.shape[0]
+
+    def matvec(self, v: torch.Tensor) -> torch.Tensor:
+        lin = self.lin
+        hv = lh.h_apply(lin.model_kind, lin.f0, lin.jvp(v), lin.logvar)
+        return self.scale * lin.vjp(hv)
+
+    def matmat(self, V: torch.Tensor) -> torch.Tensor:
+        """Batched probes: ``(P, D) -> (P, D)``."""
+        return vmap(self.matvec)(V)
+
+    def dense(self) -> torch.Tensor:
+        """The ``D × D`` GGN ``c²·RᵀR`` (small models only; true f32)."""
+        R = dense_wt_from_lin(self.lin)                           # (M·K, D)
+        return self.scale * pdot(R.T, R)
+
+
+def dense_wt_from_lin(lin: Linearization) -> torch.Tensor:
+    """Unscaled ``Lᵀ J`` rows ``(M·K, D)`` of a linearization's points
+    (differentiable in them)."""
+    return dense_wt(lin.state, lin.inputs)
+
+
+def make_ggn_operator(state, Z: torch.Tensor, full_set_size: Optional[int] = None,
+                      lin: Optional[Linearization] = None) -> GGNOperator:
+    """The GGN operator with ``N/M`` recalibration."""
+    lin = lin or linearize_model(state, Z)
+    M = lin.num_points
+    return GGNOperator(lin=lin, scale=(full_set_size or M) / M)
+
+
+def make_curvature_operator(state, Z: torch.Tensor, alpha: float,
+                            full_set_size: Optional[int] = None,
+                            lin: Optional[Linearization] = None
+                            ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``v ↦ (GGN + αI) v``, the PSD curvature ``S``."""
+    ggn = make_ggn_operator(state, Z, full_set_size, lin=lin)
+    return lambda v: ggn.matvec(v) + alpha * v
+
+
+def curvature_dense(state, Z: torch.Tensor, alpha: float,
+                    full_set_size: Optional[int] = None) -> torch.Tensor:
+    """Dense ``S = GGN + αI``, differentiable in ``Z``."""
+    G = make_ggn_operator(state, Z, full_set_size).dense()
+    return G + alpha * torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
 
 
 def ensure_symmetry(A: torch.Tensor, jitter: float = 1e-8) -> torch.Tensor:

@@ -16,7 +16,7 @@ vector: ``batch_stats_from_jax``/``batch_stats_to_jax`` convert them.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -156,3 +156,9 @@ def lecun_normal_params(spec: FlatSpec, seed: int) -> dict:
             leaf = np.zeros(shape, dtype=np.float32)
         leaves.append((path, leaf))
     return _nested(leaves)
+
+
+def logvar_from_jax(tree: Mapping[str, Any]) -> Optional[float]:
+    """A regressor's learned ``logvar`` from a Flax ``params`` tree (the
+    excluded leaf :func:`params_from_jax` leaves out), or ``None``."""
+    return float(np.asarray(tree["logvar"])) if "logvar" in tree else None

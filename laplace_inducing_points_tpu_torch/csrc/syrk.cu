@@ -22,6 +22,12 @@
 // there (r, c) and (c, r) are different lanes' sums, whose lo*hi and hi*lo terms are
 // swapped, so they are not bitwise equal. C is symmetric bit for bit (JAX's
 // tril(L) + tril(L, -1)^T).
+//
+// The diagonal: the tensor cores' truncation of sums of squares loses more than
+// TRUNCATION takes back (a coherent -3.5e-8 to -5e-8 of the diagonal at every shape
+// on an H100, four times the 1e-8 gate where D is short and cuBLAS's own bias is
+// small), so the blocks that hold diagonal entries sum them again on the CUDA cores
+// from the strips in shared memory (tiled.cuh, diagonal_strip) and write those.
 #include "tiled.cuh"
 
 namespace lip_tc {

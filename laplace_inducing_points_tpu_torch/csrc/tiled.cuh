@@ -21,7 +21,11 @@
 // average for operands of both signs, at any shape, and 3.9e-8 for all-positive
 // ones. What is left (the bias, about 5e-11 and 5e-9 relative) is gated against
 // cuBLAS's in chip_smoke.py phase 3, where a kernel without the correction, or with
-// twice it, fails.
+// twice it, fails. Sums of squares lose more than the constant takes back (the
+// Gram's diagonal kept 3.5e-8 to 5e-8 of bias at every shape on an H100), so the
+// Gram (LOWER) sums its diagonal entries on the CUDA cores instead, from the strips
+// already in shared memory (diagonal_strip): FP32 rounded to nearest and
+// Kahan-compensated, no coherent error and no extra read of A.
 //
 // Movement: operands go into shared memory as raw FP32 through a cp.async ring of
 // STAGES strips (the copy of strip s + STAGES - 1 overlaps the products of strip s),
@@ -64,7 +68,14 @@ struct Tile {
   static constexpr int B_FLOATS = B_KN ? BK * NPAD : BN * KPAD;
   static constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
   static constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * 4;
+  // the Gram's (LOWER) diagonal accumulators, a (sum, compensation) pair a row, past the ring
+  static constexpr int DIAG_BYTES = 2 * BM * 4;
 };
+
+template <typename T, bool LOWER>
+constexpr int smem_bytes() {
+  return T::SMEM_BYTES + (LOWER ? T::DIAG_BYTES : 0);
+}
 
 using SmallTile = Tile<1, 4, false>;   // 32 x 128 outputs, 4 warps
 using LargeTile = Tile<2, 4, false>;   // 64 x 128 outputs, 8 warps
@@ -244,6 +255,76 @@ __device__ __forceinline__ void stage_strip(float* smem, const float* __restrict
   }
 }
 
+// The Gram's diagonal over one strip in shared memory (As: the tile's rows of A,
+// [row][k]): four threads a row (THREADS = 4 BM), each the FP32 sum of 8 squares,
+// joined across the four lanes and Kahan-added into diag[2 r] (sum) and
+// diag[2 r + 1] (compensation) for the rows r of [lo, hi). Every operation rounds
+// to nearest.
+template <typename T>
+__device__ __forceinline__ void diagonal_strip(const float* As, int64_t row0, int64_t lo,
+                                               int64_t hi, float* diag) {
+  static_assert(T::THREADS == 4 * T::BM, "four threads a row");
+  const int r = threadIdx.x / 4;
+  const int q = threadIdx.x % 4;
+  float v = 0.f;
+#pragma unroll
+  for (int k = 0; k < BK / 4; ++k) {
+    const float x = As[r * KPAD + (BK / 4) * q + k];
+    v = fmaf(x, x, v);
+  }
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  if (q == 0 && row0 + r >= lo && row0 + r < hi) lip_mm::kahan_add(diag[2 * r], diag[2 * r + 1], v);
+}
+
+// The rows [lo, hi) whose diagonal entry the tile at (row0, col0) holds (lo >= hi:
+// none).
+template <typename T>
+__device__ __forceinline__ void diagonal_rows(int64_t row0, int64_t col0, int64_t m,
+                                              int64_t& lo, int64_t& hi) {
+  lo = row0 > col0 ? row0 : col0;
+  hi = row0 + T::BM;
+  if (col0 + T::BN < hi) hi = col0 + T::BN;
+  if (m < hi) hi = m;
+}
+
+// The block's strips through the ring into (sum, acc); DIAG (a Gram tile that holds
+// diagonal entries) also sums the diagonal rows' squares into diag. A separate
+// instance, so that the other tiles' loop carries none of it.
+template <typename T, bool B_KN, bool FOLD8, int W, bool DIAG>
+__device__ __forceinline__ void run_strips(float (&sum)[MI][NJ][4], float (&acc)[MI][NJ][4],
+                                           float* smem, const float* __restrict__ A,
+                                           const float* __restrict__ B, int64_t m, int64_t n,
+                                           int64_t K, int64_t row0, int64_t col0,
+                                           int64_t k_begin, int64_t k_end, int wm, int wn) {
+  const int64_t strips = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  int64_t lo = 0, hi = 0;
+  float* diag = smem + STAGES * T::STAGE_FLOATS;
+  if constexpr (DIAG) {
+    diagonal_rows<T>(row0, col0, m, lo, hi);
+    if (threadIdx.x < 2 * T::BM) diag[threadIdx.x] = 0.f;
+  }
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < strips) stage_strip<T, B_KN, W>(smem, A, B, m, n, K, row0, col0, k_begin, k_end, s);
+    cp_async_commit();
+  }
+  for (int64_t kt = 0; kt < strips; ++kt) {
+    cp_async_wait<STAGES - 2>();   // strip kt has landed (this thread's copies)
+    __syncthreads();               // ... everyone's; and strip kt - 1 is consumed
+    if (kt + STAGES - 1 < strips) {
+      stage_strip<T, B_KN, W>(smem, A, B, m, n, K, row0, col0, k_begin, k_end,
+                              kt + STAGES - 1);
+    }
+    cp_async_commit();
+    const float* s = smem + (kt % STAGES) * T::STAGE_FLOATS;
+    mma_strip<B_KN, T::NPAD, FOLD8>(sum, acc, s, s + T::A_FLOATS, wm, wn);
+    if constexpr (DIAG) diagonal_strip<T>(s, row0, lo, hi, diag);
+  }
+  cp_async_wait<0>();
+  if constexpr (DIAG) __syncthreads();   // the diagonal's sums are read by other threads
+}
+
 // Output tiles of BM x BN on or below the diagonal of an (m, m) Gram in row tile i:
 // the columns [0, BM (i + 1)), at most n_tiles of them.
 __host__ __device__ __forceinline__ int64_t lower_row_tiles(int64_t i, int64_t n_tiles,
@@ -277,7 +358,8 @@ __device__ __forceinline__ void lower_tile(int64_t t, int64_t m_tiles, int64_t n
 // (b / m_tiles) % n_tiles and split b / (m_tiles n_tiles); LOWER, the lower tile
 // b % lower_tiles and split b / lower_tiles. Writes out + split * m * n; LOWER with
 // `mirror` (out is C itself, no split) writes each element with row >= column and
-// its mirror, and nothing else, so C is symmetric bit for bit.
+// its mirror, and nothing else, so C is symmetric bit for bit. LOWER takes the
+// diagonal entries from diagonal_strip's sums, kept past the ring.
 template <int WARPS_M, int WARPS_N, bool B_KN, bool FOLD8, int W, bool LOWER>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
 tiled_kernel(const float* __restrict__ A, const float* __restrict__ B,
@@ -304,7 +386,6 @@ tiled_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
   const int64_t k_begin = split * chunk;
   const int64_t k_end = k_begin + chunk < K ? k_begin + chunk : K;
-  const int64_t strips = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
   const int warp = threadIdx.x / 32;
   const int wm = (warp / WARPS_N) * 32;
   const int wn = (warp % WARPS_N) * 32;
@@ -317,23 +398,23 @@ tiled_kernel(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
       for (int e = 0; e < 4; ++e) sum[i][j][e] = acc[i][j][e] = 0.f;
 
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < strips) stage_strip<T, B_KN, W>(smem, A, B, m, n, K, row0, col0, k_begin, k_end, s);
-    cp_async_commit();
+  bool has_diag = false;   // block-uniform: a Gram tile that holds diagonal entries
+  if constexpr (LOWER) {
+    int64_t lo, hi;
+    diagonal_rows<T>(row0, col0, m, lo, hi);
+    has_diag = lo < hi;
   }
-  for (int64_t kt = 0; kt < strips; ++kt) {
-    cp_async_wait<STAGES - 2>();   // strip kt has landed (this thread's copies)
-    __syncthreads();               // ... everyone's; and strip kt - 1 is consumed
-    if (kt + STAGES - 1 < strips) {
-      stage_strip<T, B_KN, W>(smem, A, B, m, n, K, row0, col0, k_begin, k_end,
-                              kt + STAGES - 1);
+  if constexpr (LOWER) {
+    if (has_diag) {
+      run_strips<T, B_KN, FOLD8, W, true>(sum, acc, smem, A, B, m, n, K, row0, col0, k_begin,
+                                          k_end, wm, wn);
     }
-    cp_async_commit();
-    const float* s = smem + (kt % STAGES) * T::STAGE_FLOATS;
-    mma_strip<B_KN, T::NPAD, FOLD8>(sum, acc, s, s + T::A_FLOATS, wm, wn);
   }
-  cp_async_wait<0>();
+  if (!has_diag) {
+    run_strips<T, B_KN, FOLD8, W, false>(sum, acc, smem, A, B, m, n, K, row0, col0, k_begin,
+                                         k_end, wm, wn);
+  }
+  const float* diag = smem + STAGES * T::STAGE_FLOATS;
 
   // C fragment layout: c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
   float* o = out + split * m * n;
@@ -348,7 +429,8 @@ tiled_kernel(const float* __restrict__ A, const float* __restrict__ B,
       for (int e = 0; e < 4; ++e) {
         const int64_t r = row0 + wm + 16 * i + g + 8 * (e / 2);
         const int64_t c = col0 + wn + 8 * j + 2 * t + (e % 2);
-        const float v = sum[i][j][e] + acc[i][j][e];
+        float v = sum[i][j][e] + acc[i][j][e];
+        if (has_diag && r == c && r < m) v = diag[2 * (r - row0)] - diag[2 * (r - row0) + 1];
         if (LOWER && mirror) {
           if (r < m && c <= r) {
             o[r * n + c] = v;
@@ -367,9 +449,10 @@ cudaError_t launch_instance(unsigned blocks, cudaStream_t s, const float* A, con
   using T = Tile<WARPS_M, WARPS_N, B_KN>;
   const auto kernel = tiled_kernel<WARPS_M, WARPS_N, B_KN, FOLD8, W, LOWER>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_bytes<T, LOWER>());
   if (err != cudaSuccess) return err;
-  kernel<<<blocks, T::THREADS, T::SMEM_BYTES, s>>>(A, B, out, m, n, K, chunk, mirror);
+  kernel<<<blocks, T::THREADS, smem_bytes<T, LOWER>(), s>>>(A, B, out, m, n, K, chunk, mirror);
   return cudaGetLastError();
 }
 
@@ -404,11 +487,12 @@ cudaError_t occupancy(int& least) {
   using T = Tile<WARPS_M, WARPS_N, B_KN>;
   const auto kernel = tiled_kernel<WARPS_M, WARPS_N, B_KN, FOLD8, W, LOWER>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_bytes<T, LOWER>());
   int blocks = 0;
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, T::THREADS,
-                                                        T::SMEM_BYTES);
+                                                        smem_bytes<T, LOWER>());
   }
   if (err == cudaSuccess && blocks < least) least = blocks;
   return err;

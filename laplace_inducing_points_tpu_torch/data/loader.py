@@ -3,9 +3,10 @@
 Counterpart of ``laplace_inducing_points_tpu/data/loader.py:29-93``
 (``ArrayDataset``, ``DataLoader``, ``make_dataloaders``) and ``:158-179``
 (``cycling_batches``, one batch at a time). Batches stay numpy on the host;
-the harness and the trainers move each one to the model's device. Shuffles
-use numpy's generator, so their order differs from the JAX package's native
-shuffle.
+the harness and the trainers move each one to the model's device. An epoch's
+shuffle is the JAX package's: a seed drawn from ``np.random.default_rng(seed)``
+drives the native splitmix64 Fisher-Yates (``data.native.shuffle_indices``),
+so the two packages give the same batches.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 from typing import Iterator, Optional
 
 import numpy as np
+
+from laplace_inducing_points_tpu_torch.data.native import shuffle_indices
 
 
 class ArrayDataset:
@@ -48,7 +51,10 @@ class DataLoader:
 
     def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
         n = len(self.dataset)
-        idx = self._rng.permutation(n) if self.shuffle else np.arange(n)
+        if self.shuffle:
+            idx = shuffle_indices(n, int(self._rng.integers(0, 2**63 - 1)))
+        else:
+            idx = np.arange(n)
         stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
         for s in range(0, stop, self.batch_size):
             b = idx[s:s + self.batch_size]

@@ -1,14 +1,15 @@
 """ctypes binding of the repository's host data engine, ``native/lip_data.cpp``:
-the batched RandomCrop + horizontal flip of CIFAR-10's train-time
-augmentation.
+the epoch shuffle (a splitmix64 Fisher-Yates) and the batched RandomCrop +
+horizontal flip of CIFAR-10's train-time augmentation.
 
 The port's own copy of the loader in
 ``laplace_inducing_points_tpu/data/native.py`` (the port imports nothing of
 that package). The shared library is built with ``g++`` on first use into
 ``laplace_inducing_points_tpu_torch/_build/`` (ignored by git), under a name
-that carries a hash of the source and the flags; without a compiler the
-numpy version below runs (the same distribution, another stream), as in the
-reference.
+that carries a hash of the source and the flags. Without a compiler the
+shuffle runs the same splitmix64 stream in Python (the same order), and the
+crop and flip's numpy version runs (the same distribution, another stream),
+as in the reference.
 """
 
 from __future__ import annotations
@@ -80,12 +81,43 @@ def _load() -> Optional[ctypes.CDLL]:
         pi = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         lib.lip_crop_flip_f32.argtypes = [pf, pi, pf, i64, i64, i64, i64, i64, u64]
         lib.lip_crop_flip_f32.restype = None
+        lib.lip_shuffle_indices.argtypes = [pi, i64, u64]
+        lib.lip_shuffle_indices.restype = None
         _lib = lib
         return _lib
 
 
 def have_native() -> bool:
     return _load() is not None
+
+
+_MASK = (1 << 64) - 1
+
+
+def _shuffle_python(n: int, seed: int) -> np.ndarray:
+    """``lip_shuffle_indices`` in Python: the same splitmix64 draws."""
+    out = list(range(n))
+    s = seed & _MASK
+    for i in range(n - 1, 0, -1):
+        s = (s + 0x9E3779B97F4A7C15) & _MASK
+        z = s
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK
+        z ^= z >> 31
+        j = z % (i + 1)
+        out[i], out[j] = out[j], out[i]
+    return np.asarray(out, dtype=np.int64)
+
+
+def shuffle_indices(n: int, seed: int) -> np.ndarray:
+    """A Fisher-Yates permutation of ``[0, n)`` drawn from splitmix64 at
+    ``seed``: the order of the JAX package's loader."""
+    lib = _load()
+    if lib is None:
+        return _shuffle_python(n, seed)
+    out = np.empty(n, dtype=np.int64)
+    lib.lip_shuffle_indices(out, n, seed & _MASK)
+    return out
 
 
 def crop_flip_f32(padded: np.ndarray, idx: np.ndarray, h: int, w: int,

@@ -1,11 +1,13 @@
 """Dataset-level evaluation harness.
 
-Counterpart of ``laplace_inducing_points_tpu/evaluation/harness.py:27-197``
-for the scalable predictive: the posterior factor is built once per
-``(state, Z)`` by :class:`ScalableLLAPredictor` and reused across every
-batch, repetition and alpha value. The noise comes from one
-``torch.Generator`` that advances batch by batch. The dense predictive is not
-ported yet (ROADMAP, Queue A).
+Counterpart of ``laplace_inducing_points_tpu/evaluation/harness.py:27-197``:
+``batch_logit_samples`` (one batch, the factor rebuilt) and
+``make_batch_sampler``, whose scalable predictor (:class:`ScalableLLAPredictor`)
+or dense one (:class:`DenseLLAPredictor`) is built once per ``(state, Z)`` and
+reused across every batch, repetition and alpha value. The loops name each
+batch with a cache key (the loader's identity and the batch index), under
+which the ``cov`` predictor keeps its α-independent statistics. The noise
+comes from one ``torch.Generator`` that advances batch by batch.
 """
 
 from __future__ import annotations
@@ -16,21 +18,42 @@ import numpy as np
 import torch
 
 from laplace_inducing_points_tpu_torch.evaluation import metrics
-from laplace_inducing_points_tpu_torch.inference.lla import ScalableLLAPredictor
+from laplace_inducing_points_tpu_torch.inference.lla import (DenseLLAPredictor,
+                                                             ScalableLLAPredictor,
+                                                             predict_lla_dense,
+                                                             predict_lla_scalable)
+
+
+def batch_logit_samples(state, x, Z, *, alpha, full_set_size, num_mc_samples,
+                        generator: torch.Generator, scalable: bool = True) -> torch.Tensor:
+    """``(S, B, C)`` predictive logit samples for one batch, the posterior
+    rebuilt for it (use :func:`make_batch_sampler` in loops)."""
+    if scalable:
+        return predict_lla_scalable(state, x, Z, alpha, generator,
+                                    full_set_size=full_set_size, num_samples=num_mc_samples)
+    dist = predict_lla_dense(state, x, Z, alpha, full_set_size=full_set_size)
+    return dist.sample(generator, num_mc_samples)
 
 
 def make_batch_sampler(state, Z, *, alpha, full_set_size, num_mc_samples,
-                       predictor: Optional[ScalableLLAPredictor] = None,
+                       scalable: bool = True, predictor=None,
                        example_block: Optional[int] = None,
                        range_clip_min: Optional[float] = None,
                        sample_block: Optional[int] = None):
-    """Return ``fn(x, generator) -> (S, B, C)`` with the posterior factor
-    hoisted out of the per-batch loop."""
-    pred = predictor if predictor is not None else ScalableLLAPredictor(
-        state, Z, full_set_size=full_set_size, example_block=example_block,
-        range_clip_min=range_clip_min, sample_block=sample_block)
-    return lambda x, generator: pred.logit_samples(x, alpha, generator,
-                                                   num_mc_samples)
+    """Return ``fn(x, generator, cache_key=None) -> (S, B, C)`` with the
+    posterior factor (the dense GGN without ``scalable``) hoisted out of the
+    per-batch loop; ``predictor`` is a prebuilt one (a
+    :class:`ScalableLLAPredictor` or a :class:`DenseLLAPredictor`)."""
+    if predictor is not None:
+        pred = predictor
+    elif scalable:
+        pred = ScalableLLAPredictor(state, Z, full_set_size=full_set_size,
+                                    example_block=example_block,
+                                    range_clip_min=range_clip_min, sample_block=sample_block)
+    else:
+        pred = DenseLLAPredictor(state, Z, full_set_size=full_set_size)
+    return lambda x, generator, cache_key=None: pred.logit_samples(
+        x, alpha, generator, num_mc_samples, cache_key=cache_key)
 
 
 def _to_device(x, device) -> torch.Tensor:
@@ -49,8 +72,7 @@ def _batch_metrics(state, out_samples: torch.Tensor, y):
 
 def eval_dataset(state, loader: Iterable, Z, *, alpha, full_set_size,
                  num_mc_samples, generator: torch.Generator,
-                 verbose: bool = False,
-                 predictor: Optional[ScalableLLAPredictor] = None,
+                 verbose: bool = False, predictor=None,
                  example_block: Optional[int] = None,
                  range_clip_min: Optional[float] = None,
                  sample_block: Optional[int] = None) -> tuple[float, float]:
@@ -62,8 +84,8 @@ def eval_dataset(state, loader: Iterable, Z, *, alpha, full_set_size,
         sample_block=sample_block)
     tot_nll = tot_acc = tot_n = 0.0
     is_regressor = state.model_kind == "regressor"
-    for x, y in loader:
-        logits = sampler(_to_device(x, state.device), generator)
+    for i, (x, y) in enumerate(loader):
+        logits = sampler(_to_device(x, state.device), generator, ("eval", id(loader), i))
         nll, acc, _ = _batch_metrics(state, logits, y)
         bs = x.shape[0]
         tot_nll += float(nll) * bs
@@ -80,7 +102,7 @@ def eval_dataset(state, loader: Iterable, Z, *, alpha, full_set_size,
 
 def eval_dataset_extended(state, loader: Iterable, Z, *, alpha, full_set_size,
                           num_mc_samples, generator: torch.Generator,
-                          predictor: Optional[ScalableLLAPredictor] = None,
+                          predictor=None,
                           example_block: Optional[int] = None,
                           range_clip_min: Optional[float] = None,
                           sample_block: Optional[int] = None) -> dict:
@@ -99,8 +121,8 @@ def eval_dataset_extended(state, loader: Iterable, Z, *, alpha, full_set_size,
     collected, all_labels = [], []
     covered = 0.0
     is_regressor = state.model_kind == "regressor"
-    for x, y in loader:
-        out = sampler(_to_device(x, state.device), generator)
+    for i, (x, y) in enumerate(loader):
+        out = sampler(_to_device(x, state.device), generator, ("eval", id(loader), i))
         nll, acc, mean_probs = _batch_metrics(state, out, y)
         bs = x.shape[0]
         tot_nll += float(nll) * bs
@@ -135,7 +157,7 @@ def eval_dataset_extended(state, loader: Iterable, Z, *, alpha, full_set_size,
 
 def auroc_ood(state, id_probs: np.ndarray, ood_loader: Iterable, Z, *,
               alpha, full_set_size, num_mc_samples, generator: torch.Generator,
-              predictor: Optional[ScalableLLAPredictor] = None,
+              predictor=None,
               example_block: Optional[int] = None,
               range_clip_min: Optional[float] = None,
               sample_block: Optional[int] = None) -> float:
@@ -146,8 +168,8 @@ def auroc_ood(state, id_probs: np.ndarray, ood_loader: Iterable, Z, *,
         example_block=example_block, range_clip_min=range_clip_min,
         sample_block=sample_block)
     ood_probs = []
-    for x, _ in ood_loader:
-        logits = sampler(_to_device(x, state.device), generator)
+    for i, (x, _) in enumerate(ood_loader):
+        logits = sampler(_to_device(x, state.device), generator, ("ood", id(ood_loader), i))
         _, _, mean_probs = metrics.mc_predictive_nll_acc(
             logits, torch.zeros(x.shape[0], dtype=torch.int64))
         ood_probs.append(mean_probs.cpu().numpy())

@@ -1,27 +1,35 @@
-"""Scalable linearized-Laplace (LLA) predictive: the serving path.
+"""Linearized-Laplace (LLA) predictive distributions.
 
-Counterpart of ``laplace_inducing_points_tpu/inference/lla.py``:
+Counterpart of ``laplace_inducing_points_tpu/inference/lla.py``: the dense
+path for small models, ``Gaussian`` (``:29-45``), ``posterior_lla_dense``
+(``:48``), ``_per_datum_jacobians`` (``:60``), ``predict_lla_dense``
+(``:70``), ``predict_la_samples_dense`` (``:84``) and
+``materialize_covariance`` (``:599``); the scalable serving path,
 ``predict_lla_scalable`` (``:107``), ``_amortized_logit_samples``
 (``:133-174``), the matfree predictive's ``_matfree_logit_samples``
 (``:183-296``; its ``_jitted_nystrom_sketch`` is ``matfree_sketch`` of
-``training/inducing.py`` with scale β) and ``ScalableLLAPredictor`` with
-``method="weight"`` or ``"matfree"`` (``:348-488``). The ``cov`` predictor,
-the dense predictive and the mesh sharding wait for later slices (ROADMAP,
-Queue A).
+``training/inducing.py`` with scale β), the ``cov`` predictive's
+``_joint_logit_samples`` (``:298-346``) and ``ScalableLLAPredictor`` with
+``method="weight"``, ``"cov"`` or ``"matfree"`` (``:348-596``). The mesh
+sharding waits for a later slice (ROADMAP, Queue A). :class:`DenseLLAPredictor`
+hoists the dense path's α-independent GGN out of the per-batch loop, as the
+scalable predictor hoists its factor.
 
-``jax.random`` streams cannot be reproduced in PyTorch, so each per-batch
-step is split in two: :func:`amortized_logit_samples_from_noise` and
-:func:`matfree_logit_samples_from_noise` take the noise as arguments (the
-twin tests feed both packages the same arrays), and
-:func:`amortized_logit_samples` and :meth:`ScalableLLAPredictor.logit_samples`
-draw it from an explicit ``torch.Generator``.
+``jax.random`` streams cannot be reproduced in PyTorch, so each sampling step
+is split in two: a ``*_from_noise`` function takes the noise as an argument
+(the twin tests feed both packages the same arrays), and its caller draws it
+from an explicit ``torch.Generator``. Where the sampler's factor is unique
+only up to column signs (the SVD of ``predict_la_samples_dense``, the
+per-image ``eigh`` of the ``cov`` path), the twins compare the factor's
+product, not the draws.
 """
 
 from __future__ import annotations
 
 import math
 import warnings
-from typing import Optional
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 from torch.func import vmap
@@ -33,6 +41,128 @@ from laplace_inducing_points_tpu_torch.ops.nystrom import sketch_probe_block
 from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nn, matmul_nt
 from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk
 from laplace_inducing_points_tpu_torch.training.inducing import matfree_sketch
+
+
+@dataclass(frozen=True)
+class Gaussian:
+    """Mean and full covariance, with the few operations the pipeline needs."""
+    mean: torch.Tensor           # (..., K)
+    cov: torch.Tensor            # (..., K, K)
+
+    def stddev(self) -> torch.Tensor:
+        return torch.sqrt(torch.clamp(torch.diagonal(self.cov, dim1=-2, dim2=-1), min=0.0))
+
+    def sample_from_noise(self, eps: torch.Tensor) -> torch.Tensor:
+        """``mean + chol(cov + 1e-8 I) ε`` for ``eps (S, ..., K)``; a factor
+        that fails is NaN, as the reference's is."""
+        k = self.cov.shape[-1]
+        jitter = 1e-8 * torch.eye(k, dtype=self.cov.dtype, device=self.cov.device)
+        chol, info = torch.linalg.cholesky_ex(self.cov + jitter)
+        chol = torch.where((info == 0)[..., None, None], chol, torch.full_like(chol, math.nan))
+        return self.mean + torch.einsum("...ij,s...j->s...i", chol, eps)
+
+    def sample(self, generator: torch.Generator, num_samples: int) -> torch.Tensor:
+        """``(num_samples, ..., K)`` draws, ``ε`` from ``generator``."""
+        eps = torch.randn((num_samples, *self.mean.shape), generator=generator,
+                          device=self.mean.device, dtype=self.mean.dtype)
+        return self.sample_from_noise(eps)
+
+
+def _inverse(S_prec: torch.Tensor) -> torch.Tensor:
+    eye = torch.eye(S_prec.shape[0], dtype=S_prec.dtype, device=S_prec.device)
+    return torch.linalg.solve(S_prec, eye)
+
+
+def posterior_lla_dense(state, X: torch.Tensor, alpha: float,
+                        full_set_size: Optional[int] = None) -> Gaussian:
+    """Dense weight posterior ``N(θ_MAP, (GGN + αI)⁻¹)``."""
+    cov = _inverse(ops.curvature_dense(state, X, alpha, full_set_size))
+    return Gaussian(mean=state.flat_params, cov=cov)
+
+
+def _per_datum_jacobians(state, Xnew: torch.Tensor):
+    """``(J (N, K, D), f0 (N, K))`` at the state's weights."""
+    return ops.jacobian_fn(state)(Xnew)
+
+
+def predictive_from_cov(state, Xnew: torch.Tensor, cov: torch.Tensor) -> Gaussian:
+    """``N(f(x*), J* cov J*ᵀ)`` per datum for a weight covariance ``cov``."""
+    J, f_mean = _per_datum_jacobians(state, Xnew)                 # (N, K, D)
+    f_cov = ops.pdot(ops.pdot(J, cov), J.transpose(1, 2))
+    return Gaussian(mean=f_mean, cov=f_cov)
+
+
+def predict_lla_dense(state, Xnew: torch.Tensor, Z: torch.Tensor, alpha: float,
+                      full_set_size: Optional[int] = None) -> Gaussian:
+    """Dense LLA predictive ``N(f(x*), J* S⁻¹ J*ᵀ)`` per datum, ``S`` the dense
+    curvature at ``Z`` (true f32: TF32 is off)."""
+    cov = _inverse(ops.curvature_dense(state, Z, alpha, full_set_size))
+    return predictive_from_cov(state, Xnew, cov)
+
+
+def la_covariance_factor(state, Z: torch.Tensor, alpha: float,
+                         full_set_size: Optional[int] = None) -> torch.Tensor:
+    """``F = U·√s`` from the SVD of the dense posterior covariance ``S⁻¹``
+    (``F Fᵀ = S⁻¹``), the factor ``jax.random.multivariate_normal(method=
+    "svd")`` draws through."""
+    cov = _inverse(ops.curvature_dense(state, Z, alpha, full_set_size))
+    U, s, _ = torch.linalg.svd(cov)
+    return U * torch.sqrt(s)[None, :]
+
+
+def predict_la_samples_dense_from_noise(state, Xnew: torch.Tensor, factor: torch.Tensor,
+                                        eps: torch.Tensor) -> torch.Tensor:
+    """The non-linearized Laplace predictive on given noise ``eps (S, D)``:
+    weights ``θ_MAP + F ε`` pushed through the full network, ``(S, N, K)``."""
+    flat_samples = state.flat_params[None] + ops.pdot(eps, factor.T)
+    return torch.stack([ops.model_outputs(state, w, Xnew) for w in flat_samples])
+
+
+def predict_la_samples_dense(state, Xnew: torch.Tensor, Z: torch.Tensor, alpha: float,
+                             generator: torch.Generator,
+                             full_set_size: Optional[int] = None,
+                             num_mc_samples: int = 100) -> torch.Tensor:
+    """Non-linearized Laplace MC baseline: weights from the dense posterior,
+    each pushed through the full nonlinear network; ``ε`` from ``generator``."""
+    factor = la_covariance_factor(state, Z, alpha, full_set_size)
+    eps = torch.randn(num_mc_samples, factor.shape[0], generator=generator,
+                      device=factor.device, dtype=factor.dtype)
+    return predict_la_samples_dense_from_noise(state, Xnew, factor, eps)
+
+
+class DenseLLAPredictor:
+    """The dense LLA predictive for a fixed ``(state, Z)``: the ``D × D`` GGN
+    at ``Z`` is built once (it is α-independent); each batch then inverts
+    ``GGN + αI`` and samples :func:`predictive_from_cov`'s Gaussian, as
+    :func:`predict_lla_dense` does. Small models only."""
+
+    def __init__(self, state, Z: torch.Tensor, *, full_set_size: Optional[int] = None):
+        self.state = state
+        self.ggn = ops.make_ggn_operator(state, Z, full_set_size).dense()
+
+    def predictive(self, x: torch.Tensor, alpha: float) -> Gaussian:
+        eye = torch.eye(self.ggn.shape[0], dtype=self.ggn.dtype, device=self.ggn.device)
+        return predictive_from_cov(self.state, x, _inverse(self.ggn + alpha * eye))
+
+    def logit_samples(self, x: torch.Tensor, alpha: float, generator: torch.Generator,
+                      num_samples: int, cache_key=None) -> torch.Tensor:
+        """``(num_samples, B, K)`` draws of the dense predictive at ``x``."""
+        x = x.to(device=self.state.device, dtype=torch.float32)
+        return self.predictive(x, alpha).sample(generator, num_samples)
+
+
+def materialize_covariance(f_cov_vp: Callable[[torch.Tensor], torch.Tensor], n: int,
+                           out_dim: int, mode: str = "diag") -> torch.Tensor:
+    """Probe a covariance operator into its diagonal (``(n, out_dim)``) or its
+    full matrix, one basis vector a probe (vmapped)."""
+    k = n * out_dim
+    eye = torch.eye(k)
+    cols = vmap(lambda e: f_cov_vp(e).reshape(k))(eye)           # (k, k)
+    if mode == "diag":
+        return torch.diagonal(cols).reshape(n, out_dim)
+    if mode == "full":
+        return cols.T
+    raise ValueError("mode must be 'diag' or 'full'")
 
 
 def predict_lla_scalable(state, Xnew: torch.Tensor, Z: torch.Tensor, alpha: float,
@@ -135,6 +265,47 @@ def matfree_logit_samples_from_noise(state, Z: torch.Tensor, sketch, alpha: floa
     return lin.f0[None] + torch.cat(outs), worst
 
 
+def cov_predictive_sigma(JJt: torch.Tensor, A: torch.Tensor, gram: torch.Tensor,
+                         lam: torch.Tensor, V: torch.Tensor, alpha: float, beta: float,
+                         rank_tol: float = 1e-7,
+                         range_clip_min: Optional[float] = None) -> torch.Tensor:
+    """The per-image predictive covariance ``Σ = J S⁻¹ Jᵀ`` (symmetrised),
+    ``(B, K, K)``, from the statistics ``JJᵀ`` and ``A = J Rᵀ``.
+
+    With the g-form factor ``S^{-1/2} = I/√α + Rᵀ H R``, ``H = V diag(g) Vᵀ``:
+    ``Σ = JJᵀ/α + A·[(2/√α)·H + H·Gzz·H]·Aᵀ``, every operator bounded (the
+    clip included) and the quadratic on the true Gram, not its eigh
+    reconstruction (the reference's notes give the assemblies that fail).
+    """
+    g = _g_weights(lam, alpha, beta, rank_tol, range_clip_min)
+    H = ops.pdot(V * g, V.T)                                      # (d_z, d_z)
+    Hp = (2.0 / math.sqrt(alpha)) * H + ops.pdot(ops.pdot(H, gram), H)
+    Sigma = JJt / alpha + ops.pdot(ops.pdot(A, Hp), A.transpose(1, 2))
+    return 0.5 * (Sigma + Sigma.transpose(1, 2))
+
+
+def joint_logit_samples_from_noise(f0: torch.Tensor, JJt: torch.Tensor, A: torch.Tensor,
+                                   gram: torch.Tensor, lam: torch.Tensor, V: torch.Tensor,
+                                   alpha: float, beta: float, eta: torch.Tensor,
+                                   rank_tol: float = 1e-7,
+                                   range_clip_min: Optional[float] = None) -> torch.Tensor:
+    """Logit samples ``(S, B, K)`` of the ``cov`` predictive on given noise
+    ``eta (S, B, K)``: each image's ``N(f0, Σ)`` through a per-image K×K eigh
+    with eigenvalues clipped at 0. Images draw independently, so every
+    per-image marginal is the weight path's."""
+    Sigma = cov_predictive_sigma(JJt, A, gram, lam, V, alpha, beta, rank_tol, range_clip_min)
+    ev, Q = torch.linalg.eigh(Sigma)
+    L = Q * torch.sqrt(torch.clamp(ev, min=0.0))[..., None, :]   # (B, K, K)
+    return f0[None] + torch.einsum("bkj,sbj->sbk", L, eta)
+
+
+# the cov self-check: draws per path, the band of a variance ratio, and the
+# share of entries outside it that counts as a failure
+COV_CHECK_SAMPLES = 64
+COV_CHECK_BAND = 3.0
+COV_CHECK_TAIL = 0.02
+
+
 class ScalableLLAPredictor:
     """Amortized IP-LLA predictive for a fixed ``(state, Z)``.
 
@@ -142,6 +313,16 @@ class ScalableLLAPredictor:
     ``d×d`` eigendecomposition are built once here; each batch then costs two
     long contractions (the ``matmul_nt``/``matmul_nn`` kernels), two small
     ``d×d`` products and one batched jvp.
+
+    ``method="cov"``: the same factor; each batch's per-image statistics
+    ``(f0, JJᵀ, J Rᵀ)`` (:func:`core.operators.predictive_jac_stats`, K
+    backward passes an image, ``jac_block`` images at a time) replace the
+    per-sample push-forward, and the samples come from each image's K-dim
+    Gaussian (:func:`joint_logit_samples_from_noise`). The statistics are
+    α-independent: :meth:`batch_stats` caches them under the caller's
+    ``cache_key`` (``cache_hits`` counts the reuses). On the first batch a
+    self-check compares its variances with a weight-path draw and warns when
+    the f32 covariance assembly has left its range.
 
     ``method="matfree"``: the ``d_z``-unbounded path. Only a
     ``(d_z, precond_rank)`` Nyström sketch of ``β·Gzz`` is built here (from
@@ -165,14 +346,11 @@ class ScalableLLAPredictor:
                  rank_tol: float = 1e-7,
                  range_clip_min: Optional[float] = None,
                  sample_block: Optional[int] = None,
-                 method: str = "weight",
+                 method: str = "weight", jac_block: Optional[int] = None,
                  cg_tol: float = 1e-4, cg_maxiter: Optional[int] = None,
                  precond_rank: Optional[int] = 64, precond_power: int = 0,
                  precond_omega=None, cg_example_block: Optional[int] = None):
-        if method == "cov":
-            raise NotImplementedError(f"predictive method {method!r} is not "
-                                      "ported yet (ROADMAP, Queue A)")
-        if method not in ("weight", "matfree"):
+        if method not in ("weight", "cov", "matfree"):
             raise ValueError(f"unknown predictive method {method!r}")
         M = Z.shape[0]
         self.state = state
@@ -204,17 +382,79 @@ class ScalableLLAPredictor:
         self.d = self.R.shape[0]
         self.gram = syrk(self.R)
         self.lam, self.V = torch.linalg.eigh(ops.ensure_symmetry(self.gram, jitter=0.0))
+        self.jac_block = jac_block
+        self._stats_cache: dict = {}
+        self.cache_hits = 0
+        self.cov_check_frac = None           # the self-check's share outside the band
+
+    def batch_stats(self, x: torch.Tensor, cache_key=None):
+        """The α-independent per-image statistics ``(f0, JJᵀ, J Rᵀ)`` of
+        ``method="cov"``, cached under ``cache_key``. The key must name the
+        batch's content among all callers of this predictor; a batch of
+        another shape under a used key is computed anew (the shape guard)."""
+        if cache_key is not None and cache_key in self._stats_cache:
+            shape, stats = self._stats_cache[cache_key]
+            if shape == tuple(x.shape):
+                self.cache_hits += 1
+                return stats
+        x = x.to(device=self.state.device, dtype=torch.float32)
+        stats = ops.predictive_jac_stats(self.state, x, self.R, jac_block=self.jac_block)
+        if cache_key is not None:
+            self._stats_cache[cache_key] = (tuple(x.shape), stats)
+        return stats
+
+    def _cov_self_check(self, x: torch.Tensor, alpha: float) -> None:
+        """Once, on the first ``cov`` batch: the per-image logit variances of
+        64 ``cov`` draws against 64 weight-path draws. Where more than 2% of
+        them differ by more than 3× (the f32 covariance assembly cancels terms
+        ~JJᵀ/α by the posterior's contraction ratio, where the weight path
+        pays its square root), it warns to use ``method="weight"``. The share
+        is kept in ``cov_check_frac``."""
+        if self.cov_check_frac is not None:
+            return
+        device = self.state.device
+        n = COV_CHECK_SAMPLES
+        w_draws = amortized_logit_samples(
+            self.state, self.R, self.lam, self.V, alpha, self.beta, x,
+            torch.Generator(device=device).manual_seed(0), n, self.rank_tol,
+            self.range_clip_min, self.sample_block)
+        f0, JJt, A = self.batch_stats(x)
+        eta = torch.randn((n, *f0.shape), generator=torch.Generator(device=device).manual_seed(1),
+                          device=device, dtype=f0.dtype)
+        c_draws = joint_logit_samples_from_noise(f0, JJt, A, self.gram, self.lam, self.V,
+                                                 alpha, self.beta, eta, self.rank_tol,
+                                                 self.range_clip_min)
+        self.cov_check_frac = cov_check_fraction(w_draws, c_draws)
+        if self.cov_check_frac > COV_CHECK_TAIL:
+            warnings.warn(
+                f"ScalableLLAPredictor(method='cov'): {100 * self.cov_check_frac:.0f}% of "
+                f"per-image logit variances disagree with a weight-path draw by "
+                f">{COV_CHECK_BAND:g}x: the posterior's contraction ratio at this operating "
+                f"point likely exceeds the f32 covariance-assembly range. Use "
+                f"method='weight' (--predictive weight) here.", stacklevel=3)
 
     def logit_samples(self, x: torch.Tensor, alpha: float,
-                      generator: torch.Generator, num_samples: int) -> torch.Tensor:
+                      generator: torch.Generator, num_samples: int,
+                      cache_key=None) -> torch.Tensor:
         """``(num_samples, B, K)`` predictive logit samples for one batch; the
-        noise (``ε``, then the matfree path's ``η``) from ``generator``."""
+        noise (``ε``; the cov path's ``η (S, B, K)``; the matfree path's ``ε``
+        then ``η``) from ``generator``. ``cache_key`` names the batch for the
+        cov path's statistics cache."""
         device = self.state.device
         x = x.to(device=device, dtype=torch.float32)
         if self.method == "weight":
             return amortized_logit_samples(
                 self.state, self.R, self.lam, self.V, alpha, self.beta, x, generator,
                 num_samples, self.rank_tol, self.range_clip_min, self.sample_block)
+        if self.method == "cov":
+            f0, JJt, A = self.batch_stats(x, cache_key)
+            eta = torch.randn((num_samples, *f0.shape), generator=generator, device=device,
+                              dtype=f0.dtype)
+            out = joint_logit_samples_from_noise(f0, JJt, A, self.gram, self.lam, self.V,
+                                                 alpha, self.beta, eta, self.rank_tol,
+                                                 self.range_clip_min)
+            self._cov_self_check(x, alpha)
+            return out
         eps = torch.randn(num_samples, self.state.spec.num_params, generator=generator,
                           device=device)
         eta = torch.randn(num_samples, self.d, generator=generator, device=device)
@@ -232,3 +472,13 @@ class ScalableLLAPredictor:
                 f"exiting on maxiter, not tolerance. The draw error is bounded by the "
                 f"residual; raise precond_rank and/or cg_maxiter.", stacklevel=2)
         return out
+
+
+def cov_check_fraction(w_draws: torch.Tensor, c_draws: torch.Tensor) -> float:
+    """The share of (image, class) logit variances whose weight-path to
+    cov-path ratio lies outside ``[1/3, 3]``."""
+    v_w = torch.var(w_draws, dim=0, unbiased=False)
+    v_c = torch.var(c_draws, dim=0, unbiased=False)
+    ratio = v_w / torch.clamp(v_c, min=1e-12)
+    bad = (ratio < 1.0 / COV_CHECK_BAND) | (ratio > COV_CHECK_BAND)
+    return float(torch.mean(bad.float()))

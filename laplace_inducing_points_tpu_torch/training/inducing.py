@@ -1,16 +1,18 @@
 """Inducing-point optimization: learn ``Z`` by minimizing
-``KL[q(θ|Z) ‖ q(θ|D)]``, on the exact Gram KL or its stochastic estimate.
+``KL[q(θ|Z) ‖ q(θ|D)]``, on the exact Gram KL, its stochastic estimate or
+the dense D × D oracle.
 
-Counterpart of ``laplace_inducing_points_tpu/training/inducing.py``: ``_grams``
-(``:62``), ``_pivot_jitter`` (``:72``), ``_kl_core`` (``:87``),
-``kl_objective_gram`` (``:124``), ``kl_objective_stochastic`` (``:142``) both
-ways, ``OBJECTIVES`` (``:340``), ``matfree_cg_healthcheck`` (``:472``, one
-function: the reference's staged probes are compile workarounds),
-``optimize_step`` (``:684``) for the ``gram``, ``stochastic`` and
-``stochastic_matfree`` objectives, ``full_set_kl`` (``:724``) and
-``train_inducing_points`` (``:795``) with its divergence guard. The dense
-objective, ``gram_chunked`` and the restarts wait for later slices (ROADMAP,
-Queue A).
+Counterpart of ``laplace_inducing_points_tpu/training/inducing.py``:
+``kl_objective_dense`` (``:51``), ``_grams`` (``:62``), ``_pivot_jitter``
+(``:72``), ``_kl_core`` (``:87``), ``kl_objective_gram`` (``:124``),
+``kl_objective_stochastic`` (``:142``) both ways, ``OBJECTIVES`` (``:340``),
+``matfree_cg_healthcheck`` (``:472``, one function: the reference's staged
+probes are compile workarounds), ``optimize_step`` (``:684``) for the
+``dense``, ``gram``, ``stochastic`` and ``stochastic_matfree`` objectives,
+``full_set_kl`` (``:724``), ``train_inducing_points_restarts`` (``:733``) and
+``train_inducing_points`` (``:795``) with its divergence guard.
+``gram_chunked`` is a compile workaround of the reference and is not ported
+(ROADMAP, "Not to port").
 
 The Gram ``Gzz = Rz Rzᵀ`` goes through the ``syrk`` kernel, the long
 products with the rows through ``matmul_nt``/``matmul_nn`` and the stochastic
@@ -59,8 +61,22 @@ from laplace_inducing_points_tpu_torch.ops.cuda.sweep import ggn_sweep
 from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk
 from laplace_inducing_points_tpu_torch.utils.checkpoint import save_array
 
-NOT_PORTED = ("the {!r} objective is not ported yet (ROADMAP, Queue A): "
-              "'gram', 'stochastic' and 'stochastic_matfree' are")
+NOT_PORTED = ("the {!r} objective is not ported (ROADMAP, 'Not to port'): "
+              "'dense', 'gram', 'stochastic' and 'stochastic_matfree' are")
+
+
+def kl_objective_dense(Z: torch.Tensor, X: torch.Tensor, state, alpha: float,
+                       probes=None, full_set_size: Optional[int] = None) -> torch.Tensor:
+    """``tr(S S_z⁻¹) + logdet(S_z)`` through the dense ``D × D`` curvatures
+    (the Z-independent ``logdet S`` dropped); the test oracle of the Gram
+    KL, differentiable in ``Z``. ``probes`` is unused (the objectives share a
+    signature)."""
+    S = ops.curvature_dense(state, X, alpha, full_set_size)
+    S_z = ops.curvature_dense(state, Z, alpha, full_set_size)
+    S_z_inv = torch.linalg.inv(S_z)
+    trace_term = torch.trace(ops.pdot(S, S_z_inv))
+    logdet_term = -torch.linalg.slogdet(S_z_inv)[1]
+    return trace_term + logdet_term
 
 
 def grams_from_rows(Rz: torch.Tensor, Rx: torch.Tensor):
@@ -462,6 +478,7 @@ def kl_value_and_grad_matfree(Z: torch.Tensor, X: torch.Tensor, state, alpha: fl
 
 
 OBJECTIVES = {
+    "dense": kl_objective_dense,
     "gram": kl_objective_gram,
     "stochastic": kl_objective_stochastic,
     "stochastic_matfree": partial(kl_objective_stochastic, materialize_w=False),
@@ -594,6 +611,12 @@ def optimize_step(Z: torch.Tensor, X: torch.Tensor, state, alpha: float,
         loss, grad = kl_value_and_grad_gram(Z, X, state, alpha,
                                             full_set_size=full_set_size,
                                             example_block=example_block)
+    elif objective == "dense":
+        z = Z.detach().requires_grad_()
+        with torch.enable_grad():
+            value = kl_objective_dense(z, X, state, alpha, full_set_size=full_set_size)
+            (grad,) = torch.autograd.grad(value, z)
+        loss = value.detach()
     elif objective in ("stochastic", "stochastic_matfree"):
         if probes is None:
             raise ValueError("the stochastic objectives need probes or a generator")
@@ -620,6 +643,48 @@ def full_set_kl(Z: torch.Tensor, X_full: torch.Tensor, state, alpha: float,
     restart-selection criterion; deterministic)."""
     return float(kl_objective_gram(Z, X_full, state, alpha,
                                    full_set_size=full_set_size))
+
+
+def train_inducing_points_restarts(state, z_init: torch.Tensor, batches: Iterable, *,
+                                   alpha: float, num_steps: int, lr: float,
+                                   selection_X: torch.Tensor,
+                                   candidate_pool: Optional[torch.Tensor] = None,
+                                   n_restarts: int = 4,
+                                   full_set_size: Optional[int] = None, seed: int = 0,
+                                   **train_kwargs):
+    """k-restart Z training selected by the exact full-set KL.
+
+    Restart 0 starts from ``z_init``; restart r ≥ 1 from M points drawn from
+    ``candidate_pool`` (default ``selection_X``) by a generator seeded from
+    ``seed`` and r (with replacement only when the pool has fewer than M
+    points). Each restart's stochastic probes come from its own generator of
+    the same seed. The candidate with the lowest :func:`full_set_kl` on
+    ``selection_X`` wins. Returns ``(Z_best, kl_best, kls)``, ``kls`` in
+    restart order.
+    """
+    pool = candidate_pool if candidate_pool is not None else selection_X
+    m = z_init.shape[0]
+    best_Z, best_kl, kls = None, None, []
+    for r in range(n_restarts):
+        gen = torch.Generator(device=z_init.device).manual_seed(
+            (seed * 1000003 + r) % 2**63)
+        if r == 0:
+            z0 = z_init
+        elif pool.shape[0] < m:
+            z0 = pool[torch.randint(pool.shape[0], (m,), generator=gen, device=z_init.device)]
+        else:
+            z0 = pool[torch.randperm(pool.shape[0], generator=gen, device=z_init.device)[:m]]
+        Z = train_inducing_points(state, z0, batches, alpha=alpha, num_steps=num_steps,
+                                  lr=lr, full_set_size=full_set_size, generator=gen,
+                                  **train_kwargs)
+        kl = full_set_kl(Z, selection_X, state, alpha, full_set_size)
+        kls.append(kl)
+        print(f"[inducing restart {r}/{n_restarts}] full-set KL = {kl:.4f}")
+        if best_kl is None or kl < best_kl:
+            best_Z, best_kl = Z, kl
+    print(f"[inducing restarts] selected KL {best_kl:.4f} "
+          f"(spread {min(kls):.4f}..{max(kls):.4f})")
+    return best_Z, best_kl, kls
 
 
 def train_inducing_points(state, z_init: torch.Tensor, batches: Iterable, *,

@@ -89,6 +89,25 @@ def load_params(ckpt_dir: str, name: str) -> tuple[torch.Tensor, FlatSpec, Optio
     return blob["flat"], FlatSpec.from_dict(blob["spec"]), blob["logvar"]
 
 
+def load_state(ckpt_dir: str, name: str, model: torch.nn.Module, model_kind: str,
+               device: torch.device):
+    """The ``ModelState`` of ``{name}.pt`` around ``model`` (on ``device``):
+    its weights, statistics and, for a regressor, its ``logvar`` written into
+    the model. A file of another layout raises."""
+    from laplace_inducing_points_tpu_torch.models.state import ModelState
+    flat, spec, logvar = load_params(ckpt_dir, name)
+    if logvar is not None:
+        with torch.no_grad():
+            model.logvar.fill_(logvar)
+    stats = load_batch_stats(ckpt_dir, name)
+    state = ModelState(model, flat.to(device), model_kind=model_kind,
+                       batch_stats={key: t.to(device) for key, t in stats.items()})
+    if spec != state.spec:
+        raise ValueError(f"MAP file layout {spec.names} does not match the "
+                         f"model's {state.spec.names}")
+    return state
+
+
 def load_batch_stats(ckpt_dir: str, name: str) -> dict[str, torch.Tensor]:
     """The BatchNorm statistics of ``{name}.pt``, on the CPU; empty for a
     model without BatchNorm and for a file written before they were stored."""

@@ -71,19 +71,13 @@ def test_evaluate_main_end_to_end_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--predictive", "cov"], "ROADMAP"),
+    (["--mesh", "--predictive", "cov"], "ROADMAP"),
     (["--mesh"], "ROADMAP"),
 ])
 def test_evaluate_refuses_unported_paths(tmp_path, extra, match):
     _write_checkpoints(tmp_path)
     with pytest.raises(NotImplementedError, match=match):
         evaluate.main(_argv(tmp_path, *extra))
-
-
-def test_evaluate_refuses_the_dense_predictive(tmp_path):
-    argv = [a for a in _argv(tmp_path) if a != "--scalable"]
-    with pytest.raises(NotImplementedError, match="dense"):
-        evaluate.main(argv)
 
 
 def _matfree_config(tmp_path) -> str:
@@ -174,7 +168,7 @@ def test_port_imports_no_jax():
         "assert len(names) >= 29, names\n"
         "new = {pkg.__name__ + '.' + m for m in ('training.inducing', 'training.map', "
         "'cli.train_scale', 'training.alpha', 'training.grid_search', 'data.native', "
-        "'ops.cg', 'ops.nystrom')}\n"
+        "'ops.cg', 'ops.nystrom', 'cli.main_toy', 'data.toy', 'viz.nplot', 'viz.style')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'laplace_inducing_points_tpu'))\n"

@@ -453,8 +453,10 @@ def test_matfree_predictor_draws_and_warns_once_on_stall(toy):
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             stalled.logit_samples(x, ALPHA, torch.Generator().manual_seed(0), 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlla.ScalableLLAPredictor(pstate, torch.from_numpy(Z), method="cov")
+    with torch.no_grad():               # the cov predictor builds the same factor
+        cov = tlla.ScalableLLAPredictor(pstate, torch.from_numpy(Z), method="cov")
+        assert torch.isfinite(cov.logit_samples(x, ALPHA, torch.Generator().manual_seed(0),
+                                                5)).all()
 
 
 # --- healthcheck and trainer ---------------------------------------------------

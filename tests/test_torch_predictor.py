@@ -114,8 +114,9 @@ def test_sample_methods_and_refusals():
         matheron = tsample.sample(pstate, Z, ALPHA, torch.Generator().manual_seed(1),
                                   num_samples=2, full_set_size=N_FULL, method="matheron")
     assert matheron.shape == draws["dense"].shape and torch.isfinite(matheron).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ScalableLLAPredictor(pstate, Z, method="cov")
+    with torch.no_grad():
+        cov = ScalableLLAPredictor(pstate, Z, method="cov")
+    assert cov.method == "cov" and torch.equal(cov.gram, cov.gram.T)
 
 
 def test_sample_block_and_generator_wrapper_match_the_core():

@@ -142,7 +142,7 @@ def test_alpha_from_the_evidence_on_cpu(tmp_path):
     ["--profile", "trace"],
     ["--mesh"],
     ["--mesh", "--objective", "stochastic_matfree"],
-    ["--objective", "dense"],
+    ["--continue", "--objective", "dense"],
 ])
 def test_unported_flags_raise(tmp_path, extra):
     argv = ["full_pipeline", *extra, *_common(tmp_path), "--alpha_ip", "0.005"]

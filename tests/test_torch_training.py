@@ -180,7 +180,7 @@ def test_optimize_step_matches_jax(kind):
     _assert_adam_steps_agree((z.numpy() - Z) / lr, (np.asarray(new_ref) - Z) / lr)
 
 
-@pytest.mark.parametrize("objective", ["dense", "gram_chunked"])
+@pytest.mark.parametrize("objective", ["gram_chunked"])
 def test_other_objectives_raise(objective):
     _, pstate, Z, X, alpha, N = _case("classifier")
     z = torch.from_numpy(Z)
@@ -293,11 +293,6 @@ def test_train_map_lowers_the_loss_and_keeps_the_state_apart():
     assert not trained.flat_params.requires_grad
     torch.testing.assert_close(pstate.flat_params, before, rtol=0, atol=0)
 
-
-def test_train_map_refuses_the_regressor():
-    _, pstate, _ = make_twins("regressor")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmap.train_map(pstate, [], [], num_epochs=1, alpha=1.0, lr=1e-3)
 
 
 # --- data and checkpoints ----------------------------------------------------

@@ -80,14 +80,22 @@ def make_twins(kind: str, seed: int = 0):
     """``(jax_state, port_state, numpy_tree)`` holding the same weights.
 
     ``kind``: ``"classifier"`` (tanh MLP 3×32, 3 classes), ``"regressor"``
-    (GELU MLP 2×16) or ``"lenet5"`` (full width, D = 61,706).
+    (GELU MLP 2×16), ``"lenet5"`` (full width, D = 61,706), or the toy
+    configs' own models: ``"banana"`` (tanh MLP 3×16, 2 classes, D = 626) and
+    ``"sine"`` (GELU MLP 2×16 on 1-D inputs, D = 321).
     """
     if kind == "classifier":
         jmodel, tmodel = JaxClassifier(32, 3, 3), SimpleClassifier(32, 3, 3, TOY_IN)
         dummy, model_kind = jnp.zeros((1, TOY_IN)), "classifier"
+    elif kind == "banana":
+        jmodel, tmodel = JaxClassifier(16, 3, 2), SimpleClassifier(16, 3, 2, TOY_IN)
+        dummy, model_kind = jnp.zeros((1, TOY_IN)), "classifier"
     elif kind == "regressor":
         jmodel, tmodel = JaxRegressor(16, 2), SimpleRegressor(16, 2, TOY_IN)
         dummy, model_kind = jnp.zeros((1, TOY_IN)), "regressor"
+    elif kind == "sine":
+        jmodel, tmodel = JaxRegressor(16, 2), SimpleRegressor(16, 2, 1)
+        dummy, model_kind = jnp.zeros((1, 1)), "regressor"
     elif kind == "lenet5":
         jmodel, tmodel = JaxLeNet5(), LeNet5()
         dummy, model_kind = jnp.zeros((1, 28, 28, 1)), "classifier"
@@ -110,4 +118,25 @@ def inputs(kind: str, n: int, seed: int = 1) -> np.ndarray:
     rng = np.random.default_rng(seed)
     if kind == "lenet5":
         return rng.uniform(0.0, 1.0, (n, 28, 28, 1)).astype(np.float32)
-    return rng.standard_normal((n, TOY_IN)).astype(np.float32)
+    return rng.standard_normal((n, 1 if kind == "sine" else TOY_IN)).astype(np.float32)
+
+
+def state64(pstate):
+    """The port state in float64, as the namespace of attributes the operators
+    and the predictives read, for twins held in float64 (``ModelState`` is
+    float32)."""
+    from types import SimpleNamespace
+
+    import copy
+
+    model = copy.deepcopy(pstate.model).double()
+    logvar = model.logvar.detach() if pstate.model_kind == "regressor" else 0.0
+    return SimpleNamespace(model=model, flat_params=pstate.flat_params.double(),
+                           spec=pstate.spec, batch_stats={}, model_kind=pstate.model_kind,
+                           logvar=logvar, device=pstate.device)
+
+
+def jax_state64(jstate):
+    """``jstate`` with float64 parameters; use under ``jax.enable_x64(True)``."""
+    return jstate.replace(params=jax.tree.map(
+        lambda a: jnp.asarray(np.asarray(a, np.float64)), jstate.params))
