@@ -143,7 +143,35 @@ exits non-zero without printing a result:
 27. ``cli.evaluate.main --predictive cov`` at LeNet5's full width on phase 7's
     MAP and Z beside ``--predictive weight``: finite metrics, the statistics
     cache hit on the second repetition, the self-check's share and the NLL
-    gaps printed with the peak memory.
+    gaps printed with the peak memory;
+28. resume: ``cli.train_scale.main train_map`` (lenet5_mnist.yml, 1 MAP
+    epoch), then ``train_map --continue``: the restored step and the learning
+    rate there (the cosine schedule's floor), the weights against an
+    in-process continuation (the same Adam state, a fresh loader of the same
+    seed; relative L2 at most 1e-6), then ``train_inducing --continue``;
+29. ``--profile``: ``train_scale train_inducing --profile`` (gram, 2 Z steps)
+    and ``evaluate --scalable --profile --iters 2`` (one batch): each trace
+    holds B1-B3's kernels with the launches of the port's counters for the
+    same steps, their device ms as the trace gives them printed;
+30. ``gram_chunked`` against ``gram`` on phase 7's MAP, Z and X: the two
+    stagings in float64 (KL relative 1e-6, dL/dZ relative L2 1e-5); in
+    float32 the chunked rows (1e-4) and pullback (1e-5) against one block's,
+    and each step's dL/dZ against float64 (the chunked one within 2x the
+    gram one's); warm step time and peak memory of each, and the same at
+    matfree1k's materialized size (M = 1,024, d_z = 10,240);
+31. the mesh on the card (the one H100 listed twice, and the real devices
+    where there are more): ``sharded_gram`` against B1's Gram (relative 1e-6),
+    ``sharded_dense_wt`` and ``sharded_ggn_matmat`` against their unsharded
+    versions, the data-parallel MAP step against one device's on LeNet5 and
+    on ResNet1M at batch 16 (BatchNorm; where float32 leaves a gradient
+    less accurate than 1e-5, each against float64), ``ScalableLLAPredictor(
+    mesh=)`` against the plain draws on its factor and noise (weight, S = 200;
+    matfree, S = 32; logits relative 1e-5, or for the weight path no further
+    from its float64 contractions than 2x the plain draws, for the matfree
+    path within 10x the CG residual float32 reaches), with a second
+    factor build's distance printed, and ``evaluate --mesh`` and
+    ``train_scale`` without ``--no-mesh`` on one GPU (no mesh there, as in the
+    reference).
 
 The line before the last is the card's ``nvidia-smi`` line; the one before
 it is the per-kernel JSON; the last line is ``{"ok": true, "device": ...}``.
@@ -2759,6 +2787,598 @@ def run_toy(workdir: Path, smi: str) -> dict:
     return {"rows": rows, "launches": launches}
 
 
+# --- phases 28-31: resume, profile, gram_chunked, the mesh ---------------------
+
+RESUME_REL_TOL = 1e-6     # phase 28: the CLI's resumed MAP against the in-process one
+CHUNKED_LOSS_TOL = 1e-6   # phase 30: gram_chunked's KL against gram's in float64, relative
+CHUNKED_GRAD_TOL = 1e-5   # phase 30: its dL/dZ there, and its float32 pullback, relative L2
+MESH_GRAM_TOL = 1e-6      # phase 31: sharded_gram against B1's Gram, relative
+MESH_OP_TOL = 1e-5        # phase 31: the other sharded ops and the mesh predictors
+MESH_CG_FACTOR = 10       # phase 31: matfree mesh draws within this x the CG residual
+MESH_KERNELS = ("syrk", "matmul_nt", "matmul_nn")
+CHUNKED_KERNELS = ("syrk", "matmul_nt", "syrk_backward", "matmul_nt_backward")
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic convolutions within the block (two runs of the
+    same MAP steps then differ by nothing but their inputs)."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def _lenet5_args(workdir: Path, config: str, tag: str) -> list[str]:
+    return ["--dataset", "mnist", "--config", config, "--device", "cuda",
+            "--ckpt_map", str(workdir / f"{tag}_map"), "--ckpt_induc", str(workdir / f"{tag}_ind"),
+            "--data_dir", str(workdir / "data")]
+
+
+def phase_resume(workdir: Path, smi: str) -> None:
+    """``train_scale train_map`` (lenet5_mnist.yml, map.epochs 150 -> 1: 31 steps
+    on the surrogate), then ``train_map --continue``: the restored step, the
+    learning rate there (the cosine schedule past its end: its floor), and the
+    weights against an in-process continuation (``load_train_state``, a fresh
+    loader of the same seed, ``train_map``); then ``train_inducing --continue``
+    on that MAP."""
+    print("== phase 28: resumable MAP training (train_scale train_map, then --continue)",
+          flush=True)
+    from laplace_inducing_points_tpu_torch.cli import train_scale
+    from laplace_inducing_points_tpu_torch.data.scale import get_dataloaders
+    from laplace_inducing_points_tpu_torch.models.scale import LeNet5
+    from laplace_inducing_points_tpu_torch.training.map import cosine_lr, train_map
+    from laplace_inducing_points_tpu_torch.utils.checkpoint import load_train_state
+    from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
+    config = _cut_config(workdir, CONFIG, {150: 1, 250: 3}, "lenet5_resume.yml")
+    cfg = load_experiment_config(config)
+    mp = cfg["optimization"]["map"]
+    common = _lenet5_args(workdir, config, "resume")
+    cuda = torch.device("cuda")
+    with _deterministic_cudnn():
+        first = _quiet(train_scale.main, ["train_map", *common], workdir / "resume_1.log")["map"]
+        saved = load_train_state(str(workdir / "resume_map"), "map_mnist", LeNet5().cuda(),
+                                 "classifier", cuda)
+        second = _quiet(train_scale.main, ["train_map", "--continue", *common],
+                        workdir / "resume_2.log")["map"]
+        train_loader, test_loader, _ = get_dataloaders("mnist", mp["batch_size"],
+                                                       root=str(workdir / "data"))
+        with open(workdir / "resume_ref.log", "w") as f, contextlib.redirect_stdout(f):
+            ref = train_map(saved, train_loader, test_loader, num_epochs=mp["epochs"],
+                            alpha=cfg["optimization"]["alpha"],
+                            lr=cosine_lr(mp["lr"], mp["epochs"], len(train_loader)))
+    resumed = load_train_state(str(workdir / "resume_map"), "map_mnist", LeNet5().cuda(),
+                               "classifier", cuda)
+    rel = _rel(resumed.flat_params, ref.flat_params)
+    moved = _rel(resumed.flat_params, saved.flat_params)
+    print(f"first run: steps {first['start_step']} -> {first['end_step']}, lr at step 0 "
+          f"{first['start_lr']:.6g}; resumed run: restored step {second['start_step']}, lr "
+          f"there {second['start_lr']:.6g} (the schedule's floor 0.08 x {mp['lr']:g} = "
+          f"{0.08 * mp['lr']:.6g}), steps -> {second['end_step']}; loss "
+          f"{second['loss_first']:.5f} -> {second['loss_last']:.5f}; {second['s_per_step']:.5f} "
+          f"s per warm step ({smi})")
+    print(f"resumed weights against the in-process continuation: rel L2 {rel:.3e} (limit "
+          f"{RESUME_REL_TOL:g}); the epoch moved them by rel {moved:.3e}")
+    if (second["start_step"], second["end_step"]) != (first["end_step"], 2 * first["end_step"]):
+        raise AssertionError(f"resume did not continue the step count: {first} {second}")
+    if not math.isclose(second["start_lr"], 0.08 * mp["lr"], rel_tol=1e-6):
+        raise AssertionError(f"resumed lr {second['start_lr']} is not the schedule's floor")
+    if not (rel <= RESUME_REL_TOL and moved > 0):
+        raise AssertionError(f"resumed MAP: rel {rel:.3e} from the in-process run, moved "
+                             f"{moved:.3e}")
+    result = _quiet(train_scale.main, ["train_inducing", "--continue", "--alpha_ip",
+                                       str(cfg["optimization"]["alpha"]), *common],
+                    workdir / "resume_3.log")
+    print(f"train_inducing --continue on the resumed MAP: max |Z - Z0| = "
+          f"{result['Z_moved']:.4g}; alpha {result['alpha']['alpha_ip']}")
+    if not (result["Z_moved"] > 0):
+        raise AssertionError("train_inducing --continue: Z did not move")
+
+
+_TILED = re.compile(r"tiled_kernel<\s*(\d+),\s*(\d+),\s*([^,<>]+?),\s*([^,<>]+?),\s*(\d+),"
+                    r"\s*([^,<>]+?)\s*>")
+_TILED_MANGLED = re.compile(r"tiled_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])ELi(\d+)ELb([01])E")
+
+
+def _wrapper_of(kernel: str):
+    """The wrapper whose launch a device kernel of the trace is (its main
+    kernel; the second passes of a split are part of the same launch), or
+    None. The tiled kernel serves B1 (LOWER), B3 (B_KN) and B2."""
+    if "nt_rows_kernel" in kernel:
+        return "matmul_nt"
+    if "nn_rows_kernel" in kernel or "nn_rank_kernel" in kernel:
+        return "matmul_nn"
+    if "tiled_kernel" not in kernel:
+        return None
+    m = _TILED.search(kernel) or _TILED_MANGLED.search(kernel)
+    if m is None:
+        raise AssertionError(f"cannot read the template arguments of {kernel!r}")
+    flag = {"true": True, "1": True, "(bool)1": True, "false": False, "0": False,
+            "(bool)0": False}
+    b_kn, lower = flag[m.group(3)], flag[m.group(6)]
+    return "syrk" if lower else ("matmul_nn" if b_kn else "matmul_nt")
+
+
+def _trace_kernels(log_dir: Path) -> dict:
+    """``{wrapper: (launches, device ms)}`` of B1-B3 in the one trace file in
+    ``log_dir``, from its device kernel events."""
+    files = list(log_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"{log_dir}: {len(files)} trace files")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError(f"{files[0].name}: no device kernel in the trace")
+    out = {name: [0, 0.0] for name in MESH_KERNELS}
+    for e in kernels:
+        name = _wrapper_of(e["name"])
+        if name is not None:
+            out[name][0] += 1
+            out[name][1] += e["dur"] / 1e3
+    return {name: tuple(v) for name, v in out.items()}
+
+
+def _launched() -> dict:
+    """Launches of B1-B3 by the port's counters, every path, forward and backward."""
+    counts = _path_counts()
+    return {name: sum(n for key, n in counts.items() if key.startswith(name + "."))
+            for name in MESH_KERNELS}
+
+
+def phase_profile(workdir: Path, kernel_rows: dict, smi: str) -> None:
+    """``train_scale train_inducing --profile`` (lenet5_mnist.yml, gram, 2 Z
+    steps on phase 7's MAP) and ``evaluate --scalable --profile --iters 2`` (one
+    test batch): each trace file holds B1-B3 with the launches of the port's
+    counters for the same steps, and their device ms as the trace gives them."""
+    print("== phase 29: --profile (train_scale train_inducing, evaluate --scalable)",
+          flush=True)
+    from laplace_inducing_points_tpu_torch.cli import evaluate, train_scale
+    config = _cut_config(workdir, CONFIG, {150: 1, 250: 2}, "lenet5_profile.yml")
+    common = _lenet5_args(workdir, config, "profile")
+    common[common.index("--ckpt_map") + 1] = str(workdir / "train_map")    # phase 7's MAP
+    trace_dir = workdir / "trace_train"
+    _reset_counts()
+    _quiet(train_scale.main, ["train_inducing", "--alpha_ip", "0.005", "--profile",
+                              str(trace_dir), *common], workdir / "profile_train.log")
+    counted = _launched()
+    traced = _trace_kernels(trace_dir)
+    print(f"train_inducing, 2 gram Z steps: launches by the counters {json.dumps(counted)}; "
+          f"in the trace " + ", ".join(f"{k} {n} ({ms:.3f} ms on the device, "
+                                       f"{ms / max(n, 1):.4f} ms per launch)"
+                                       for k, (n, ms) in traced.items()) + f" ({smi})")
+    for name in MESH_KERNELS:
+        if not (traced[name][0] == counted[name] > 0):
+            raise AssertionError(f"{name}: {traced[name][0]} launches in the trace, "
+                                 f"{counted[name]} by the counters")
+    trace_dir = workdir / "trace_eval"
+    _reset_counts()
+    evaluate_argv = ["--scalable", "--predictive", "weight", "--iters", "2", "--max_batches",
+                     "1", "--profile", str(trace_dir), *common]
+    evaluate_argv[evaluate_argv.index("--config") + 1] = _train_config(workdir)
+    evaluate_argv[evaluate_argv.index("--ckpt_induc") + 1] = str(workdir / "train_ind")
+    _quiet(evaluate.main, evaluate_argv, workdir / "profile_eval.log")
+    counted = _launched()
+    traced = _trace_kernels(trace_dir)
+    # the factor build (one B1 launch) comes before the traced second of two
+    # like repetitions
+    expected = {"syrk": 0, "matmul_nt": counted["matmul_nt"] // 2,
+                "matmul_nn": counted["matmul_nn"] // 2}
+    print(f"evaluate, the second of 2 repetitions of one batch (S=200): launches by the "
+          f"counters over the run {json.dumps(counted)}; in the trace "
+          + ", ".join(f"{k} {n} ({ms / n:.4f} ms on the device per launch)"
+                      for k, (n, ms) in traced.items() if n)
+          + "; CUDA-event ms of the same products (phase 3): "
+          + ", ".join(f"{k} {kernel_rows[k]['ms']:.4f}" for k in ("matmul_nt", "matmul_nn"))
+          + f" ({smi})")
+    if counted["syrk"] != 1 or counted["matmul_nt"] % 2 or counted["matmul_nn"] % 2:
+        raise AssertionError(f"evaluate's launches are not one factor build and two like "
+                             f"repetitions: {counted}")
+    for name, n in expected.items():
+        if traced[name][0] != n:
+            raise AssertionError(f"{name}: {traced[name][0]} launches in the trace, {n} "
+                                 f"expected from the counters")
+
+
+def _timed_step(fn, reps: int = 3):
+    """``(result, median host seconds, peak GiB above the base)`` of ``fn()``
+    after one warm-up, the device synchronised."""
+    fn()
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(reps):
+        out, seconds = _host_s(fn)
+        times.append(seconds)
+    return out, statistics.median(times), (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def _state64(state):
+    """A float64 copy of ``state`` as the operators read it (``ModelState`` is
+    float32)."""
+    import copy
+    from types import SimpleNamespace
+    return SimpleNamespace(model=copy.deepcopy(state.model).double(),
+                           flat_params=state.flat_params.double(), spec=state.spec,
+                           batch_stats={k: v.double() for k, v in state.batch_stats.items()},
+                           model_kind=state.model_kind, logvar=state.logvar,
+                           device=state.device)
+
+
+def _gram_step64(state64, Z, X, alpha, beta, gamma, block):
+    """``(KL, dL/dZ, the row cotangent)`` of the gram step in float64, staged as
+    the port stages it: rows in blocks of ``block`` examples, the Gram algebra
+    (plain products) and its backward, the row pullback in the same blocks."""
+    from laplace_inducing_points_tpu_torch.core import operators as ops
+    from laplace_inducing_points_tpu_torch.training.inducing import _kl_core
+    with torch.no_grad():
+        Rz = ops.dense_wt(state64, Z, example_block=block)
+        Rx = ops.dense_wt(state64, X, example_block=block)
+    rz = Rz.requires_grad_()
+    kl = _kl_core(rz @ rz.T, Rx @ rz.T, torch.sum(Rx * Rx), rz.shape[1], alpha, beta, gamma)
+    (ct,) = torch.autograd.grad(kl, rz)
+    del Rz, Rx, rz
+    return kl.detach(), ops.dense_wt_pullback(state64, Z, ct, example_block=block), ct
+
+
+def phase_gram_chunked(workdir: Path, train: dict, kernel_rows: dict, backward_rows: dict,
+                       smi: str) -> dict:
+    """``gram_chunked`` (rows and pullback 4 examples at a time) against ``gram``
+    (one block) at LeNet5's full width on phase 7's MAP, Z and X.
+
+    The two are one function staged two ways. The staging arithmetic, in
+    float64 (rows, plain Gram algebra, pullback; this file's ``_gram_step64``,
+    not the port's entries): the two stagings must give the KL within
+    CHUNKED_LOSS_TOL and dL/dZ within CHUNKED_GRAD_TOL. The port's entries,
+    in float32 through the kernels: the rows built in chunks must be within
+    REL_TOL of one block's, one cotangent pulled back in chunks within
+    CHUNKED_GRAD_TOL of one block's, and ``kl_grad_gram_chunked``'s KL and
+    dL/dZ each no further from float64 than F64_RATIO times
+    ``kl_value_and_grad_gram``'s: two float32 evaluations of this step
+    differ by their Gram algebra's round-off (each ~1e-3 from float64 at
+    alpha 0.005), so they are held to float64, not to each other. Warm step
+    time and peak memory of each, and the same at matfree1k's materialized
+    size (M = 1,024, d_z = 10,240, not gated); the kernels the chunked step
+    launched, and its cross-Gram product timed."""
+    print("== phase 30: the gram_chunked objective against gram (LeNet5)", flush=True)
+    from laplace_inducing_points_tpu_torch.core import operators as ops
+    from laplace_inducing_points_tpu_torch.data.scale import load_arrays
+    from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nt, matmul_nt_plain
+    from laplace_inducing_points_tpu_torch.training.inducing import (kl_grad_gram_chunked,
+                                                                     kl_value_and_grad_gram)
+    state, X, alpha = train["state"], train["X"], train["alpha"]
+    N = round(train["beta"] * train["Z"].shape[0])
+    rows = {}
+    for label, Z, reps in (("M=100", train["Z"], 3), ("M=1024", None, 1)):
+        if Z is None:
+            x_train, _ = load_arrays("mnist", train=True, root=train["data_dir"])
+            Z = torch.as_tensor(x_train[:1024]).cuda()
+        (v_g, g_g), s_g, peak_g = _timed_step(
+            lambda: kl_value_and_grad_gram(Z, X, state, alpha, full_set_size=N), reps)
+        if label == "M=100":
+            _reset_counts()
+        (v_c, g_c), s_c, peak_c = _timed_step(
+            lambda: kl_grad_gram_chunked(Z, X, state, alpha, full_set_size=N, chunk=4), reps)
+        if label == "M=100":
+            launches = {k: v // (reps + 1) for k, v in _read_counts().items()}
+        print(f"{label} (d_z={10 * Z.shape[0]}, D={state.spec.num_params}, "
+              f"d_x={10 * X.shape[0]}), float32 through the kernels: KL gram {float(v_g):.9g}, "
+              f"gram_chunked {float(v_c):.9g} (rel "
+              f"{abs(float(v_c) - float(v_g)) / abs(float(v_g)):.2e}); dL/dZ rel L2 "
+              f"{_rel(g_c, g_g):.2e}; warm step gram {s_g:.4f} s, gram_chunked {s_c:.4f} s; "
+              f"peak memory above the base gram {peak_g:.3f} GiB, gram_chunked "
+              f"{peak_c:.3f} GiB ({smi})", flush=True)
+        if label == "M=100":
+            Z100, f32 = Z, {"gram": (float(v_g), g_g), "gram_chunked": (float(v_c), g_c)}
+        else:
+            del v_g, g_g, v_c, g_c
+        torch.cuda.empty_cache()
+
+    Z, beta, gamma = Z100, N / Z100.shape[0], N / X.shape[0]
+    s64 = _state64(state)
+    v64, g64, ct64 = _gram_step64(s64, Z.double(), X.double(), alpha, beta, gamma, None)
+    v64c, g64c, _ = _gram_step64(s64, Z.double(), X.double(), alpha, beta, gamma, 4)
+    rel_v64, rel_g64 = abs(float(v64c) - float(v64)) / abs(float(v64)), _rel(g64c, g64)
+    with torch.no_grad():
+        R_one, R_chunk = ops.dense_wt(state, Z), ops.dense_wt(state, Z, example_block=4)
+        R64 = ops.dense_wt(s64, Z.double())
+    rel_rows = _rel(R_chunk, R_one)
+    rows_err = (_rel(R_one, R64), _rel(R_chunk, R64))
+    del R_one, R_chunk, R64
+    ct = ct64.float()
+    pull_one = ops.dense_wt_pullback(state, Z, ct)
+    pull_chunk = ops.dense_wt_pullback(state, Z, ct, example_block=4)
+    rel_pull = _rel(pull_chunk, pull_one)
+    pull_err = _rel(pull_one, ops.dense_wt_pullback(s64, Z.double(), ct64))
+    del pull_one, pull_chunk, ct, ct64
+    err = {key: (abs(v - float(v64)) / abs(float(v64)), _rel(g, g64))
+           for key, (v, g) in f32.items()}
+    print(f"M=100 in float64, the staging arithmetic (not the port's entries): KL {float(v64):.12g} against "
+          f"{float(v64c):.12g} (rel {rel_v64:.2e}, limit {CHUNKED_LOSS_TOL:g}); dL/dZ rel L2 "
+          f"{rel_g64:.2e} (limit {CHUNKED_GRAD_TOL:g})")
+    print(f"M=100 in float32: rows in chunks of 4 against one block rel {rel_rows:.2e} (limit "
+          f"{REL_TOL:g}; each against float64: one block {rows_err[0]:.2e}, chunks "
+          f"{rows_err[1]:.2e}); one cotangent pulled back in chunks against one block rel "
+          f"{rel_pull:.2e} (limit {CHUNKED_GRAD_TOL:g}; one block against float64 "
+          f"{pull_err:.2e}); the port's whole step against float64: KL gram "
+          f"{err['gram'][0]:.2e}, gram_chunked {err['gram_chunked'][0]:.2e}; dL/dZ gram "
+          f"{err['gram'][1]:.2e}, gram_chunked {err['gram_chunked'][1]:.2e} (each limit "
+          f"{F64_RATIO} x gram's)",
+          flush=True)
+    del f32, g64, g64c, s64
+    if not (rel_v64 <= CHUNKED_LOSS_TOL and rel_g64 <= CHUNKED_GRAD_TOL):
+        raise AssertionError("the two stagings of the gram step differ in float64")
+    if not (rel_rows <= REL_TOL and rel_pull <= CHUNKED_GRAD_TOL):
+        raise AssertionError("gram_chunked's rows or pullback differ from gram's in float32")
+    for k, what in enumerate(("KL", "dL/dZ")):
+        if not err["gram_chunked"][k] <= F64_RATIO * err["gram"][k]:
+            raise AssertionError(f"gram_chunked's {what} is {err['gram_chunked'][k]:.2e} from "
+                                 f"float64, gram's {err['gram'][k]:.2e}")
+    torch.cuda.empty_cache()
+    print(f"launches of one gram_chunked step (M=100): {json.dumps(launches)}")
+    for name in CHUNKED_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the gram_chunked step")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    Rz, Rx = (torch.randn(n, state.spec.num_params, device="cuda", generator=gen)
+              for n in (1000, 1280))
+    print("  the cross-Gram of the step, timed:", flush=True)
+    rows["matmul_nt"] = _check_path("matmul_nt", "tiled", matmul_nt, matmul_nt_plain,
+                                    (Rx, Rz), True)
+    rows["syrk"] = kernel_rows["syrk"]                      # phase 3: B1 at (1000, D)
+    rows.update({k: backward_rows[k] for k in ("syrk_backward", "matmul_nt_backward")})
+    return {"rows": rows, "launches": launches}
+
+
+def _map_step_pair(state, batch, mesh, lr: float = 1e-3, alpha: float = 0.005):
+    """One MAP step on ``batch`` without and with ``mesh`` from the same
+    weights: ``[(loss, gradient, flat after, batch_stats after), ...]``."""
+    from laplace_inducing_points_tpu_torch.training.map import map_step, working_state
+    outs = []
+    for m in (None, mesh):
+        work = working_state(state, state.flat_params.clone())
+        flat = state.flat_params.clone().requires_grad_()
+        loss = map_step(work, flat, torch.optim.Adam([flat], lr=lr, eps=1e-8), batch, alpha,
+                        mesh=m)
+        torch.cuda.synchronize()
+        outs.append((float(loss), flat.grad.detach().clone(), flat.detach(), work.batch_stats))
+    return outs
+
+
+def _map_gradient64(state, batch, alpha: float = 0.005) -> torch.Tensor:
+    """The MAP loss's gradient on one device in float64 (train-mode
+    BatchNorm)."""
+    from laplace_inducing_points_tpu_torch.training.map import map_loss
+    s64 = _state64(state)
+    flat = s64.flat_params.clone().requires_grad_()
+    x, y = (torch.as_tensor(t, device="cuda") for t in batch)
+    loss, _ = map_loss(s64, flat, x.double(), y, alpha)
+    return torch.autograd.grad(loss, flat)[0]
+
+
+def _check_map_steps(label: str, state, batch, mesh) -> None:
+    """The data-parallel step's loss and BatchNorm statistics against one
+    device's (MESH_OP_TOL); its gradient within MESH_OP_TOL of one device's or,
+    where float32 leaves the gradient itself less accurate than that (a
+    BatchNorm net at its random init), no further from float64 than F64_RATIO
+    times one device's is."""
+    (l1, g1, f1, s1), (l2, g2, f2, s2) = _map_step_pair(state, batch, mesh)
+    g64 = _map_gradient64(state, batch)
+    rel_l, rel_g, rel_f = abs(l2 - l1) / abs(l1), _rel(g2, g1), _rel(f2, f1)
+    err1, err2 = _rel(g1, g64), _rel(g2, g64)
+    rel_s = max((_rel(s2[k], s1[k]) for k in s1), default=0.0)
+    print(f"  data-parallel MAP step, {label}: loss {l1:.7f} on one device, {l2:.7f} on the "
+          f"mesh (rel {rel_l:.2e}); gradient rel L2 {rel_g:.2e} (against float64: one device "
+          f"{err1:.2e}, the mesh {err2:.2e}); weights after the Adam step rel {rel_f:.2e}; "
+          f"BatchNorm statistics rel {rel_s:.2e} (worst of {len(s1)} buffers)", flush=True)
+    if not (rel_l <= MESH_OP_TOL and rel_s <= MESH_OP_TOL
+            and (rel_g <= MESH_OP_TOL or err2 <= F64_RATIO * err1)):
+        raise AssertionError(f"data-parallel MAP step ({label}) differs from one device")
+
+
+def _logits64(state, x, pred, alpha: float, eps: torch.Tensor) -> torch.Tensor:
+    """The weight predictor's logit samples on noise ``eps`` with its sample
+    contractions in float64 (the jvp push-forward in float32) on the factor of
+    ``pred``."""
+    from torch.func import vmap
+
+    from laplace_inducing_points_tpu_torch.core import operators as ops
+    from laplace_inducing_points_tpu_torch.inference.sample import _g_weights
+    g = _g_weights(pred.lam, alpha, pred.beta, pred.rank_tol, pred.range_clip_min).double()
+    R, V, e = pred.R.double(), pred.V.double(), eps.double()
+    w = e / math.sqrt(alpha) + ((((e @ R.T) @ V) * g) @ V.T) @ R
+    lin = ops.linearize_model(state, x)
+    return lin.f0[None] + vmap(lin.jvp)(w.float())
+
+
+def _mesh_checks(mesh, train: dict, resnet_state, smi: str) -> dict:
+    """The sharded ops, the data-parallel MAP steps and the mesh predictors on
+    ``mesh`` against their unsharded versions; the launches of B1-B3 by the
+    sharded Gram and the mesh predictors."""
+    from laplace_inducing_points_tpu_torch.core import operators as ops
+    from laplace_inducing_points_tpu_torch.data.scale import get_dataloaders
+    from laplace_inducing_points_tpu_torch.inference.lla import (
+        ScalableLLAPredictor, amortized_logit_samples_from_noise,
+        matfree_logit_samples_from_noise)
+    from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk
+    from laplace_inducing_points_tpu_torch.parallel import sharded_ops as sh
+    state, Z = train["state"], train["Z"]
+    N = round(train["beta"] * Z.shape[0])
+    print(f"mesh {mesh} ({smi})", flush=True)
+    with torch.no_grad():
+        R = ops.dense_wt(state, Z)
+        gram = syrk(R)
+        _reset_counts()
+        sharded = sh.sharded_gram(state, Z, mesh)
+        launches = _read_counts()
+        blocks = sh.sharded_dense_wt(state, Z, mesh)
+        rel_gram, rel_rows = _rel(sharded, gram), _rel(torch.cat(blocks), R)
+        del R, gram, blocks
+        V = torch.randn(4, state.spec.num_params, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 31))
+    Zs = Z[:32]
+    ggn = sh.sharded_ggn_matmat(state, Zs, V, mesh, full_set_size=N)
+    plain_ggn = ops.make_ggn_operator(state, Zs, N).matmat(V)
+    rel_ggn = _rel(ggn, plain_ggn)
+    print(f"  sharded_gram against B1's Gram of the same rows: rel {rel_gram:.2e} (limit "
+          f"{MESH_GRAM_TOL:g}); sharded_dense_wt against dense_wt: rel {rel_rows:.2e}; "
+          f"sharded_ggn_matmat (M=32, P=4) against the jvp/vjp operator: rel {rel_ggn:.2e}",
+          flush=True)
+    if not (rel_gram <= MESH_GRAM_TOL and rel_rows <= MESH_OP_TOL and rel_ggn <= MESH_OP_TOL):
+        raise AssertionError("a sharded op differs from its unsharded version")
+    del ggn, plain_ggn, V
+    loader, _, _ = get_dataloaders("mnist", 256, aug=False, root=train["data_dir"])
+    _check_map_steps("LeNet5, batch 256", state, next(iter(loader)), mesh)
+    cifar, _, _ = get_dataloaders("cifar10", 16, aug=False, root=train["data_dir"])
+    _check_map_steps("ResNet1M, batch 16 (BatchNorm)", resnet_state, next(iter(cifar)), mesh)
+    x = torch.as_tensor(next(iter(loader))[0]).cuda()
+    with torch.no_grad():
+        # matfree at alpha 50 (lenet5_mnist_matfree4k.yml's), where a tight CG
+        # converges: the two runs then differ by round-off, not by CG's exits
+        for method, S, alpha, kw in (("weight", 200, train["alpha"], {}),
+                                     ("matfree", 32, 50.0, dict(cg_tol=1e-6, cg_maxiter=500,
+                                                                precond_rank=64))):
+            if method == "weight":
+                _reset_counts()
+            meshed = ScalableLLAPredictor(state, Z, full_set_size=N, method=method, mesh=mesh,
+                                          **kw)
+            with warnings.catch_warnings():
+                # tol 1e-6 is below what float32 CG reaches: it runs to maxiter
+                # and the residual it reaches is printed below
+                warnings.simplefilter("ignore")
+                b = meshed.logit_samples(x, alpha, torch.Generator(device="cuda")
+                                         .manual_seed(SEED + 32), S)
+            if method == "weight":
+                counts = _read_counts()
+                launches.update({k: counts[k] for k in ("matmul_nt", "matmul_nn")})
+            # the plain (unsharded) draws on the same factor and the same noise,
+            # drawn as the predictor draws it
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+            eps = torch.randn(S, state.spec.num_params, generator=gen, device="cuda")
+            if method == "weight":
+                a = amortized_logit_samples_from_noise(
+                    state, meshed.R, meshed.lam, meshed.V, alpha, meshed.beta, x, eps,
+                    meshed.rank_tol, meshed.range_clip_min, meshed.sample_block)
+            else:
+                eta = torch.randn(S, meshed.d, generator=gen, device="cuda")
+                a, res = matfree_logit_samples_from_noise(
+                    state, Z, meshed.nys, alpha, N, x, eps, eta, kw["cg_tol"],
+                    kw["cg_maxiter"], meshed.sample_block, meshed.cg_example_block)
+            rel = _rel(b, a)
+            ok = rel <= MESH_OP_TOL
+            if method == "weight":
+                # the draws' contractions in float64 (phase 5's yardstick): the
+                # sample correction amplifies their round-off
+                ref = _logits64(state, x, meshed, alpha, eps)
+                err_a, err_b = _rel(a, ref), _rel(b, ref)
+                ok = ok or err_b <= F64_RATIO * err_a
+                # a second factor build: how far its draws move on the same noise
+                other = ScalableLLAPredictor(state, Z, full_set_size=N)
+                rebuilt = amortized_logit_samples_from_noise(
+                    state, other.R, other.lam, other.V, alpha, other.beta, x, eps,
+                    other.rank_tol, other.range_clip_min, other.sample_block)
+                extra = (f"; against float64 contractions: plain {err_a:.2e}, mesh "
+                         f"{err_b:.2e}; a second factor build: rows rel "
+                         f"{_rel(other.R, meshed.R):.2e}, eigenvalues rel "
+                         f"{_rel(other.lam, meshed.lam):.2e}, its draws' logits rel "
+                         f"{_rel(rebuilt, a):.2e}")
+                del ref, other, rebuilt
+            else:
+                # the draws' error is bounded by the CG residual (times the
+                # deflated operator's small conditioning): two float32 solves
+                # split differently differ by that much, not by round-off
+                worst = max(meshed.last_cg_residual, float(res))
+                ok = ok or rel <= MESH_CG_FACTOR * worst
+                extra = (f"; CG residual mesh {meshed.last_cg_residual:.2e}, plain "
+                         f"{float(res):.2e} (limit {MESH_CG_FACTOR} x the worst)")
+            print(f"  ScalableLLAPredictor(method={method!r}, mesh=) against the plain draws "
+                  f"on its factor, S={S}, batch {x.shape[0]}, alpha {alpha:g}: logits rel "
+                  f"{rel:.2e} (limit {MESH_OP_TOL:g}){extra}", flush=True)
+            if not ok:
+                raise AssertionError(f"mesh predictor ({method}) differs from the plain one")
+            del meshed, a, b, eps
+    torch.cuda.empty_cache()
+    return {name: launches[name] for name in MESH_KERNELS}
+
+
+def phase_mesh(workdir: Path, train: dict, smi: str) -> dict:
+    """The mesh on the card: one H100 listed twice (and the real devices where
+    there are more). Listed twice, every ``.to(device)`` is the identity, so
+    it checks the sharding arithmetic, not transfers between devices or
+    launches on a second one: the sharded ops, the data-parallel MAP step on LeNet5 and
+    on ResNet1M at batch 16 (BatchNorm: the whole batch's statistics), the
+    mesh predictors; ``evaluate --mesh`` and ``train_scale`` without
+    ``--no-mesh`` on one GPU; the kernels at the mesh's shapes, timed."""
+    print("== phase 31: the mesh (parallel/) on the card; on one card listed twice it "
+          "checks the sharding arithmetic, not transfers between devices", flush=True)
+    import io
+    from laplace_inducing_points_tpu_torch.cli import evaluate, train_scale
+    from laplace_inducing_points_tpu_torch.core.params import (FlatSpec, lecun_normal_params,
+                                                               params_from_jax)
+    from laplace_inducing_points_tpu_torch.models.scale import ResNet1M
+    from laplace_inducing_points_tpu_torch.models.state import ModelState
+    from laplace_inducing_points_tpu_torch.ops.cuda.matmul import (matmul_nn, matmul_nn_plain,
+                                                                   matmul_nt, matmul_nt_plain)
+    from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk, syrk_plain
+    from laplace_inducing_points_tpu_torch.parallel.mesh import make_mesh
+    model = ResNet1M(10).cuda()
+    flat, _ = params_from_jax(lecun_normal_params(FlatSpec.from_module(model), SEED))
+    resnet = ModelState(model, flat.cuda(), "classifier")
+    meshes = [make_mesh([torch.device("cuda", 0)] * 2)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_mesh())
+    launches = None
+    for mesh in meshes:
+        counted = _mesh_checks(mesh, train, resnet, smi)
+        launches = launches or counted
+    _check_launches("mesh", MESH_KERNELS, launches)
+    del resnet, model
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        evaluate.main(["--dataset", "mnist", "--config", _train_config(workdir), "--scalable",
+                       "--predictive", "weight", "--mesh", "--iters", "1", "--max_batches", "1",
+                       "--device", "cuda", "--ckpt_map", str(workdir / "train_map"),
+                       "--ckpt_induc", str(workdir / "train_ind"), "--data_dir",
+                       str(workdir / "data")])
+        train_scale.main(["train_map", *_lenet5_args(
+            workdir, _cut_config(workdir, CONFIG, {150: 1}, "lenet5_mesh.yml"), "mesh")])
+    lines = [line for line in out.getvalue().splitlines() if line.startswith("[mesh]")]
+    print(f"evaluate --mesh and train_scale train_map (mesh on by default) with "
+          f"{torch.cuda.device_count()} GPU(s): [mesh] lines {lines or 'none'} (the "
+          f"reference prints one only with more than one device)")
+    if (torch.cuda.device_count() > 1) != bool(lines):
+        raise AssertionError(f"mesh lines {lines} with {torch.cuda.device_count()} GPU(s)")
+    D = train["state"].spec.num_params
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    print("  the kernels at the mesh's shapes (two devices: half the samples, half of D):",
+          flush=True)
+    Rz = randn(1000, D)
+    rows = {"syrk": _check_kernel("syrk", syrk, syrk_plain, (randn(1000, D // 2),), True),
+            "matmul_nt": _check_kernel("matmul_nt", matmul_nt, matmul_nt_plain,
+                                       (randn(100, D), Rz), True),
+            "matmul_nn": _check_kernel("matmul_nn", matmul_nn, matmul_nn_plain,
+                                       (randn(100, 1000), Rz), True)}
+    return {"rows": rows, "launches": launches}
+
+
+def run_last_modules(workdir: Path, train: dict, kernel_rows: dict, backward_rows: dict,
+                     smi: str) -> dict:
+    """Phases 28-31; the kernels' rows and launches of the gram_chunked and
+    mesh paths."""
+    phase_resume(workdir, smi)
+    phase_profile(workdir, kernel_rows, smi)
+    chunked = phase_gram_chunked(workdir, train, kernel_rows, backward_rows, smi)
+    mesh = phase_mesh(workdir, train, smi)
+    return {"gram_chunked": chunked, "mesh": mesh}
+
+
 def main() -> int:
     smi = phase_environment()
     phase_build()
@@ -2800,6 +3420,8 @@ def main() -> int:
         matfree = run_matfree(Path(tmp), smi)
         torch.cuda.empty_cache()
         toy = run_toy(Path(tmp), smi)
+        torch.cuda.empty_cache()
+        last = run_last_modules(Path(tmp), train, kernel_rows, backward_rows, smi)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
               "replaces": KERNELS[name][1], "launches": launches[name],
@@ -2863,6 +3485,17 @@ def main() -> int:
             table.append({"name": f"{name}@{label}", "route": "cuda", "source": source,
                           "replaces": replaces, "launches": n,
                           **{k: row[k] for k in keys}})
+    # phases 30 and 31: the gram_chunked step's kernels (launches of one step)
+    # and the mesh's (the sharded Gram and the mesh predictor), each timed at
+    # its shapes there
+    for label, names in (("gram_chunked", CHUNKED_KERNELS), ("mesh", MESH_KERNELS)):
+        for name in names:
+            table.append({"name": f"{name}@{label}", "route": "cuda",
+                          "source": (KERNELS[name][0] if name in KERNELS else
+                                     "laplace_inducing_points_tpu_torch/csrc/matmul_tiled.cu"),
+                          "replaces": KERNELS[name][1] if name in KERNELS else BACKWARD[name],
+                          "launches": last[label]["launches"][name],
+                          **{k: last[label]["rows"][name][k] for k in keys}})
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,10 @@ pass. The scale datasets and the toy ones (``TOY_DATASETS``, read through
 ``data.toy``; the OOD ring at ``--ood_ring_radius``) are both served. The
 matfree knobs come from the flags, else the config's
 ``sampling.cg_*``/``precond_*``; the cov path's ``--jac_block`` from the flag,
-else ``sampling.jac_block``. ``--mesh`` is not ported (ROADMAP, Queue A).
+else ``sampling.jac_block``. ``--mesh`` splits the MC-sample axis of the
+weight and matfree predictives over every visible GPU when there is more
+than one (``parallel.mesh``); ``--profile DIR`` writes a ``torch.profiler``
+trace of the last repetition into DIR.
 
 Usage:
     python -m laplace_inducing_points_tpu_torch.cli.evaluate \
@@ -21,6 +24,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -38,10 +42,12 @@ from laplace_inducing_points_tpu_torch.evaluation.harness import (auroc_ood,
 from laplace_inducing_points_tpu_torch.inference.lla import (DenseLLAPredictor,
                                                              ScalableLLAPredictor)
 from laplace_inducing_points_tpu_torch.models.registry import get_model
+from laplace_inducing_points_tpu_torch.parallel.mesh import make_mesh
 from laplace_inducing_points_tpu_torch.utils.checkpoint import (load_array, load_run_meta,
                                                                 load_state)
 from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
 from laplace_inducing_points_tpu_torch.utils.device import resolve_device, set_f32_policy
+from laplace_inducing_points_tpu_torch.utils.profiling import trace
 
 EVAL_SEED = 155858
 DATASETS = sorted({*DATASET_SHAPES, *TOY_DATASETS})
@@ -121,12 +127,19 @@ def build_parser():
                         "example blocks of this size (bounds the live "
                         "activations; default config sampling.cg_example_block)")
     p.add_argument("--mesh", action="store_true",
-                   help="not ported (ROADMAP, Queue A)")
+                   help="shard the MC-sample axis of the scalable predictor over all "
+                        "visible GPUs (data-parallel evaluation; no-op on one device)")
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--max_batches", type=int, default=None,
                    help="evaluate only the first N test batches")
     p.add_argument("--out_json", default=None,
                    help="append per-repetition metrics as JSON lines")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="capture a TensorBoard-loadable torch.profiler trace (host and "
+                        "device) of the LAST evaluation repetition into DIR "
+                        "(utils.profiling.trace). With --iters >= 2 the traced repetition "
+                        "is warm; with --iters 1 it is the first one and INCLUDES the "
+                        "one-time costs of a first run (a warning is printed)")
     p.add_argument("--data_dir", default="data/")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default; raises without a GPU) or 'cpu'")
@@ -168,8 +181,6 @@ def main(argv=None) -> list[dict]:
     print(set_f32_policy())
     print(f"[device] {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP, Queue A)")
     cfg = load_experiment_config(args.config)
     model_cfg = cfg["model"]
     opt_cfg = cfg["optimization"]
@@ -219,6 +230,17 @@ def main(argv=None) -> list[dict]:
         knobs = {"jac_block": (args.jac_block if args.jac_block is not None
                                else sampling_cfg["jac_block"])}
         print(f"[predictor] predictive method: cov {knobs}")
+    mesh = None
+    if (args.scalable and args.mesh and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        if predictive == "cov":
+            print("[predictor] NOTE: --mesh applies only to the weight-space "
+                  "push-forward; the cov path runs replicated (its per-sample cost is "
+                  "a K-dim Gaussian draw: there is nothing worth sharding)")
+        else:
+            mesh = make_mesh()
+            knobs["mesh"] = mesh
+            print(f"[mesh] MC-sample axis over {torch.cuda.device_count()} devices")
     with torch.no_grad():
         t0 = time.perf_counter()
         if predictive == "dense":
@@ -243,17 +265,29 @@ def main(argv=None) -> list[dict]:
         n_batches = min(n_batches, args.max_batches)
         print(f"[eval] limited to first {args.max_batches} test batches")
 
+    if args.profile and args.iters == 1:
+        print("[profile] WARNING: --iters 1 means the traced repetition is COLD: it is "
+              "the first run of the evaluation step, with the CUDA kernels' build and "
+              "load where the posterior factor build did not already do them, cuDNN's "
+              "and the allocator's first calls and, for cov, the per-image statistics "
+              "that later repetitions reuse. The factor build itself comes before "
+              "the traced repetition. Use --iters >= 2 for a warm trace.")
+
     records = []
     for i in range(args.iters):
         generator = torch.Generator(device=device).manual_seed(EVAL_SEED + i)
+        # trace only the last repetition: with iters >= 2 it is warm
+        traced = args.profile and i == args.iters - 1
         t0 = time.perf_counter()
-        with torch.no_grad():
+        with (trace(args.profile) if traced else contextlib.nullcontext()), torch.no_grad():
             rec = eval_dataset_extended(
                 state, test_loader, Z, alpha=alpha, full_set_size=full_set_size,
                 num_mc_samples=ip_cfg["mc_samples"], generator=generator,
                 predictor=predictor)
         _sync(device)
         dt = time.perf_counter() - t0
+        if traced:
+            print(f"[profile] device trace of repetition {i} written to {args.profile}")
         record = {"dataset": args.dataset, "alpha": alpha, "iter": i,
                   "predictive": predictive, "mc": ip_cfg["mc_samples"],
                   "device": str(device), "factor_s": factor_s,

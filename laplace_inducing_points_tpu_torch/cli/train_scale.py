@@ -15,14 +15,21 @@ predictive; the matfree one with the config's ``sampling.cg_*`` and
 seeded from ``ip.seed``; the matfree one also with ``ip.cg_tol``,
 ``ip.cg_maxiter``, ``ip.precond_rank``, ``ip.precond_power`` and
 ``ip.cg_example_block``, and a CG healthcheck on the trained Z printed and
-kept in the ``--train_log`` summary), the ``--train_log`` rows and summary,
-and the checkpoints that ``cli.evaluate`` reads (the MAP weights and
-statistics as ``{ckpt_map}/map_{dataset}.pt``, Z as
-``{ckpt_induc}/ind_{dataset}_{epochs}.npz`` with the run's meta beside it:
-the α and where it came from, ``cli``, ``evidence`` or ``grid``).
-``--continue``, ``--profile`` and a mesh are not ported yet and raise
-(ROADMAP, Queue A); so does the ``gram_chunked`` objective, a compile
-workaround of the reference (ROADMAP, "Not to port").
+kept in the ``--train_log`` summary; ``gram_chunked``: the gram step with its
+rows built and pulled back ``ip.example_block or 4`` examples at a time), the
+``--train_log`` rows and summary, and the checkpoints that ``cli.evaluate``
+reads (the MAP train state, weights, statistics and Adam's state, as
+``{ckpt_map}/map_{dataset}.pt``, Z as ``{ckpt_induc}/ind_{dataset}_{epochs}.npz``
+with the run's meta beside it: the α and where it came from, ``cli``,
+``evidence`` or ``grid``).
+
+``--continue`` restores that train state and trains ``map.epochs`` more MAP
+epochs from it (Adam and the cosine schedule resume at the restored step
+count; past the schedule's end the rate stays at its floor), or starts
+fresh where there is none. ``--profile DIR`` writes a ``torch.profiler``
+trace of the inducing phase into DIR. With more than one GPU visible the MAP
+steps are data-parallel over all of them (``parallel.mesh``) unless
+``--no-mesh``; with one they run as they are.
 
 The MAP weights start from a seeded numpy lecun-normal init in the JAX layout
 (``core.params.lecun_normal_params`` of ``model.seed``; BatchNorm scale one,
@@ -37,6 +44,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import time
@@ -50,20 +58,19 @@ from laplace_inducing_points_tpu_torch.data.loader import cycling_batches
 from laplace_inducing_points_tpu_torch.data.scale import DATASET_SHAPES, get_dataloaders
 from laplace_inducing_points_tpu_torch.models.registry import get_model
 from laplace_inducing_points_tpu_torch.models.state import ModelState
+from laplace_inducing_points_tpu_torch.parallel.mesh import make_mesh
 from laplace_inducing_points_tpu_torch.training.alpha import train_map_then_alpha
 from laplace_inducing_points_tpu_torch.training.grid_search import grid_search_alpha
-from laplace_inducing_points_tpu_torch.training.inducing import (OBJECTIVES,
-                                                                 healthcheck_line,
+from laplace_inducing_points_tpu_torch.training.inducing import (healthcheck_line,
                                                                  matfree_cg_healthcheck,
                                                                  train_inducing_points)
 from laplace_inducing_points_tpu_torch.training.map import cosine_lr, train_map
-from laplace_inducing_points_tpu_torch.utils.checkpoint import (load_state, save_array,
-                                                                save_params, save_run_meta)
+from laplace_inducing_points_tpu_torch.utils.checkpoint import (load_state, load_train_state,
+                                                                save_array, save_run_meta,
+                                                                save_train_state)
 from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
 from laplace_inducing_points_tpu_torch.utils.device import resolve_device, set_f32_policy
-
-
-PORTED_OBJECTIVES = (None, *OBJECTIVES)
+from laplace_inducing_points_tpu_torch.utils.profiling import trace
 
 
 def build_parser():
@@ -72,7 +79,7 @@ def build_parser():
     p.add_argument("--dataset", required=True, choices=sorted(DATASET_SHAPES))
     p.add_argument("--config", required=True)
     p.add_argument("--continue", dest="resume", action="store_true",
-                   help="not ported (ROADMAP, Queue A)")
+                   help="resume MAP training from the saved train state")
     p.add_argument("--alpha_ip", type=float, default=None,
                    help="prior precision of the Z training; default: the "
                         "evidence alpha (--alpha_mode evidence) or the grid search")
@@ -83,17 +90,24 @@ def build_parser():
     p.add_argument("--objective", default=None,
                    choices=["dense", "gram", "gram_chunked", "stochastic",
                             "stochastic_matfree"],
-                   help="all but 'gram_chunked' are ported ('dense' for small "
-                        "models only); default: config ip.objective")
+                   help="'dense' for small models only; 'gram_chunked' builds and "
+                        "pulls back the rows ip.example_block (or 4) examples at a "
+                        "time; default: config ip.objective")
     p.add_argument("--ckpt_map", default="checkpoint/map/")
     p.add_argument("--ckpt_induc", default="checkpoint/ind/")
     p.add_argument("--data_dir", default="data/")
-    p.add_argument("--mesh", action="store_true", help="not ported (ROADMAP, Queue A)")
+    p.add_argument("--no-mesh", action="store_true",
+                   help="disable data-parallel sharding of the MAP steps over the GPUs")
     p.add_argument("--train_log", default=None,
                    help="JSONL path: per-step {step, loss, seconds} rows of the "
                         "inducing phase plus one kl_training_run summary row")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="not ported (ROADMAP, Queue A)")
+                   help="capture a TensorBoard-loadable torch.profiler trace (host and "
+                        "device) of the inducing-training phase into DIR "
+                        "(utils.profiling.trace). Traces grow with step count: use a "
+                        "short run when profiling. Only the inducing phase is traced: "
+                        "with mode=train_map (which has no inducing phase) the flag is "
+                        "an error")
     p.add_argument("--range_clip", type=float, default=1.0,
                    help="clip min for (alpha + beta*lam) inside the posterior "
                         "inverse sqrt during the alpha grid search; must match "
@@ -101,19 +115,6 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default; raises without a GPU) or 'cpu'")
     return p
-
-
-def _refuse_unported(args) -> None:
-    unported = {
-        "--continue": (args.resume, "Queue A"),
-        "--profile": (args.profile is not None, "Queue A"),
-        "--mesh": (args.mesh, "Queue A"),
-        f"--objective {args.objective}": (args.objective not in PORTED_OBJECTIVES,
-                                          "'Not to port'"),
-    }
-    for flag, (asked, where) in unported.items():
-        if asked:
-            raise NotImplementedError(f"{flag} is not ported (ROADMAP, {where})")
 
 
 def _sync(device: torch.device) -> None:
@@ -143,17 +144,24 @@ class StepClock:
                 "s_per_step": statistics.median(warm)}
 
 
-def _train_map(args, cfg, model, device, train_loader, test_loader,
-               full_set_size: int) -> tuple[ModelState, dict]:
-    model_cfg, map_cfg = cfg["model"], cfg["optimization"]["map"]
+def _init_state(cfg, model, device) -> ModelState:
+    """The MAP weights' start: the seeded numpy lecun-normal init."""
+    model_cfg = cfg["model"]
     flat, _ = params_from_jax(lecun_normal_params(FlatSpec.from_module(model),
                                                   model_cfg["seed"]))
-    state = ModelState(model, flat.to(device), model_kind=model_cfg["type"])
+    return ModelState(model, flat.to(device), model_kind=model_cfg["type"])
+
+
+def _train_map(args, cfg, state, device, train_loader, test_loader, full_set_size: int,
+               mesh) -> tuple[ModelState, dict]:
+    map_cfg = cfg["optimization"]["map"]
     if map_cfg["schedule"] == "cosine":
         lr = cosine_lr(map_cfg["lr"], map_cfg["epochs"], len(train_loader))
     else:
         lr = map_cfg["lr"]
     clock, losses = StepClock(device), []
+    start = state.step
+    start_lr = lr(start) if callable(lr) else lr
 
     def callback(step, loss):
         clock.tick()
@@ -169,14 +177,15 @@ def _train_map(args, cfg, model, device, train_loader, test_loader,
         print(f"[alpha] evidence-optimized alpha = {evidence_alpha:.5f}")
     else:
         state = train_map(state, train_loader, test_loader, num_epochs=map_cfg["epochs"],
-                          alpha=alpha, lr=lr, callback=callback)
+                          alpha=alpha, lr=lr, callback=callback, mesh=mesh)
     stats = {**clock.summary(), "loss_first": float(losses[0]),
-             "loss_last": float(losses[-1]), "evidence_alpha": evidence_alpha}
-    print(f"[MAP] {stats['steps']} steps, first {stats['first_step_s']:.4f} s, "
+             "loss_last": float(losses[-1]), "evidence_alpha": evidence_alpha,
+             "start_step": start, "start_lr": start_lr, "end_step": state.step}
+    print(f"[MAP] steps {start} -> {state.step} (lr {start_lr:.6g} at step {start}), "
+          f"first {stats['first_step_s']:.4f} s, "
           f"then {stats['s_per_step']:.4f} s per step (median); loss "
           f"{stats['loss_first']:.4f} -> {stats['loss_last']:.4f}")
-    save_params(state.flat_params, state.spec, args.ckpt_map, f"map_{args.dataset}",
-                batch_stats=state.batch_stats)
+    save_train_state(state, args.ckpt_map, f"map_{args.dataset}")
     return state, stats
 
 
@@ -185,7 +194,12 @@ def main(argv=None) -> dict:
     timing and loss summaries of the phases that ran (``alpha``: the Z
     training's α, its source and the grid search's ``(alpha, nll)`` points)."""
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    if args.profile and args.mode == "train_map":
+        # --profile traces the inducing phase only; in train_map mode main()
+        # returns before it, so the flag would silently produce no trace
+        raise SystemExit(
+            "--profile traces the inducing-training phase, which mode=train_map never "
+            "reaches: run mode=train_inducing or full_pipeline to profile, or drop the flag")
     device = resolve_device(args.device)
     print(set_f32_policy())
     print(f"[device] {device}"
@@ -199,16 +213,32 @@ def main(argv=None) -> dict:
     full_set_size = opt_cfg["full_set_size"] or len(train_loader.dataset)
     model = get_model(cfg["model"], DATASET_SHAPES[args.dataset][0]).to(device)
 
+    mesh = None
+    if not args.no_mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
+        mesh = make_mesh()
+        print(f"[mesh] data-parallel over {torch.cuda.device_count()} devices")
+
+    map_name, kind = f"map_{args.dataset}", cfg["model"]["type"]
+    state = None
+    if args.resume:
+        try:
+            state = load_train_state(args.ckpt_map, map_name, model, kind, device)
+            print(f"[resume] continuing from step {state.step}")
+        except FileNotFoundError:
+            print("[resume] no checkpoint found — starting fresh")
+
     result = {}
     if args.mode in ("train_map", "full_pipeline"):
-        state, result["map"] = _train_map(args, cfg, model, device, train_loader,
-                                          test_loader, full_set_size)
+        state, result["map"] = _train_map(args, cfg, state or _init_state(cfg, model, device),
+                                          device, train_loader, test_loader, full_set_size,
+                                          mesh)
         print("[DONE] MAP training.")
         if args.mode == "train_map":
             return result
-    else:
-        state = load_state(args.ckpt_map, f"map_{args.dataset}", model, cfg["model"]["type"],
-                           device)
+    elif not args.resume:
+        state = load_state(args.ckpt_map, map_name, model, kind, device)
+    elif state is None:
+        state = _init_state(cfg, model, device)
 
     # inducing points: init from a training batch of size m (no augmentation)
     m = ip_cfg["m"]
@@ -234,9 +264,6 @@ def main(argv=None) -> dict:
         alpha_src = "grid"
     result["alpha"] = {"alpha_ip": float(alpha_ip), "alpha_src": alpha_src, "grid": grid}
     objective = args.objective or ip_cfg["objective"]
-    if objective not in OBJECTIVES:
-        raise NotImplementedError(f"objective {objective!r} is not ported (ROADMAP, "
-                                  "'Not to port')")
 
     callback, rows = None, []
     if args.train_log:
@@ -250,15 +277,16 @@ def main(argv=None) -> dict:
 
     cg = {key: ip_cfg[key] for key in ("cg_tol", "cg_maxiter", "precond_rank",
                                        "precond_power", "cg_example_block")}
-    Z = train_inducing_points(state, z_init, cycling_batches(ip_loader), alpha=alpha_ip,
-                              num_steps=ip_cfg["epochs"], lr=ip_cfg["lr"],
-                              full_set_size=full_set_size, objective=objective,
-                              example_block=ip_cfg["example_block"],
-                              generator=torch.Generator(device=device).manual_seed(ip_cfg["seed"]),
-                              st_samples=ip_cfg["st_samples"],
-                              slq_samples=ip_cfg["slq_samples"],
-                              slq_num_matvecs=ip_cfg["slq_num_matvecs"], callback=callback,
-                              **cg)
+    with trace(args.profile) if args.profile else contextlib.nullcontext():
+        Z = train_inducing_points(
+            state, z_init, cycling_batches(ip_loader), alpha=alpha_ip,
+            num_steps=ip_cfg["epochs"], lr=ip_cfg["lr"], full_set_size=full_set_size,
+            objective=objective, example_block=ip_cfg["example_block"],
+            generator=torch.Generator(device=device).manual_seed(ip_cfg["seed"]),
+            st_samples=ip_cfg["st_samples"], slq_samples=ip_cfg["slq_samples"],
+            slq_num_matvecs=ip_cfg["slq_num_matvecs"], callback=callback, **cg)
+    if args.profile:
+        print(f"[profile] device trace written to {args.profile}")
     healthcheck = None
     if objective == "stochastic_matfree":
         # the inner solve's convergence at the trained Z

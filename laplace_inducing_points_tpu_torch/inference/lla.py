@@ -10,8 +10,9 @@ path for small models, ``Gaussian`` (``:29-45``), ``posterior_lla_dense``
 (``:183-296``; its ``_jitted_nystrom_sketch`` is ``matfree_sketch`` of
 ``training/inducing.py`` with scale β), the ``cov`` predictive's
 ``_joint_logit_samples`` (``:298-346``) and ``ScalableLLAPredictor`` with
-``method="weight"``, ``"cov"`` or ``"matfree"`` (``:348-596``). The mesh
-sharding waits for a later slice (ROADMAP, Queue A). :class:`DenseLLAPredictor`
+``method="weight"``, ``"cov"`` or ``"matfree"`` (``:348-596``), with its
+``mesh``: the sample axis split over a ``parallel.mesh.Mesh``.
+:class:`DenseLLAPredictor`
 hoists the dense path's α-independent GGN out of the per-batch loop, as the
 scalable predictor hoists its factor.
 
@@ -338,6 +339,14 @@ class ScalableLLAPredictor:
 
     ``alpha`` is a per-call argument, so an alpha grid search shares the
     factor (or the sketch).
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) spreads evaluation over its devices
+    along ``mesh_axis``: the state and the factor (or the sketch) are
+    replicated on each, and each batch's draws, made from the caller's
+    generator as without a mesh, are split along the sample axis, pushed
+    forward on their devices and gathered on the first. The numbers are the
+    single-device ones. ``method="cov"`` runs unsharded: its per-sample cost
+    is a K-dim Gaussian draw, nothing worth splitting.
     """
 
     def __init__(self, state, Z: torch.Tensor, *,
@@ -349,7 +358,8 @@ class ScalableLLAPredictor:
                  method: str = "weight", jac_block: Optional[int] = None,
                  cg_tol: float = 1e-4, cg_maxiter: Optional[int] = None,
                  precond_rank: Optional[int] = 64, precond_power: int = 0,
-                 precond_omega=None, cg_example_block: Optional[int] = None):
+                 precond_omega=None, cg_example_block: Optional[int] = None,
+                 mesh=None, mesh_axis: str = "data"):
         if method not in ("weight", "cov", "matfree"):
             raise ValueError(f"unknown predictive method {method!r}")
         M = Z.shape[0]
@@ -377,6 +387,7 @@ class ScalableLLAPredictor:
                          torch.Generator(device=Z.device).manual_seed(0x4E59))
                 self.nys = matfree_sketch(state, Z, min(precond_rank, self.d), omega,
                                           precond_power, cg_example_block, scale=self.beta)
+            self._replicate(mesh, mesh_axis, (Z, self.nys))
             return
         self.R = ops.dense_wt(state, Z, example_block=example_block)
         self.d = self.R.shape[0]
@@ -386,6 +397,35 @@ class ScalableLLAPredictor:
         self._stats_cache: dict = {}
         self.cache_hits = 0
         self.cov_check_frac = None           # the self-check's share outside the band
+        self._replicate(None if method == "cov" else mesh, mesh_axis,
+                        (self.R, self.lam, self.V))
+
+    def _replicate(self, mesh, axis: str, factor: tuple) -> None:
+        """``self.shards``: ``(device, state, factor)`` on each device along
+        ``axis`` of ``mesh`` (``factor``'s tensors, or tuples of them, copied
+        there); without a mesh, the one shard this predictor holds."""
+        if mesh is None:
+            self.shards = [(self.state.device, self.state, factor)]
+            return
+
+        def to(t, d):
+            if isinstance(t, tuple):
+                return tuple(to(u, d) for u in t)
+            return None if t is None else t.to(d)
+
+        self.shards = [(rep.device, rep, to(factor, rep.device))
+                       for rep in mesh.replicate(self.state, axis)]
+
+    def _split(self, draw, *noise) -> list:
+        """``draw(state, factor, *noise shard)`` on each shard's device with
+        its share of the sample axis of every ``noise`` tensor."""
+        chunks = [t.tensor_split(len(self.shards)) for t in noise]
+        outs = []
+        for k, (device, rep, factor) in enumerate(self.shards):
+            parts = [c[k].to(device) for c in chunks]
+            if len(parts[0]):
+                outs.append(draw(rep, factor, *parts))
+        return outs
 
     def batch_stats(self, x: torch.Tensor, cache_key=None):
         """The α-independent per-image statistics ``(f0, JJᵀ, J Rᵀ)`` of
@@ -443,9 +483,13 @@ class ScalableLLAPredictor:
         device = self.state.device
         x = x.to(device=device, dtype=torch.float32)
         if self.method == "weight":
-            return amortized_logit_samples(
-                self.state, self.R, self.lam, self.V, alpha, self.beta, x, generator,
-                num_samples, self.rank_tol, self.range_clip_min, self.sample_block)
+            eps = torch.randn(num_samples, self.R.shape[1], generator=generator,
+                              device=device, dtype=self.R.dtype)
+            outs = self._split(
+                lambda rep, f, e: amortized_logit_samples_from_noise(
+                    rep, *f, alpha, self.beta, x.to(rep.device), e, self.rank_tol,
+                    self.range_clip_min, self.sample_block), eps)
+            return torch.cat([o.to(device) for o in outs])
         if self.method == "cov":
             f0, JJt, A = self.batch_stats(x, cache_key)
             eta = torch.randn((num_samples, *f0.shape), generator=generator, device=device,
@@ -458,9 +502,12 @@ class ScalableLLAPredictor:
         eps = torch.randn(num_samples, self.state.spec.num_params, generator=generator,
                           device=device)
         eta = torch.randn(num_samples, self.d, generator=generator, device=device)
-        out, res = matfree_logit_samples_from_noise(
-            self.state, self.Z, self.nys, alpha, self.full_set_size, x, eps, eta, self.cg_tol,
-            self.cg_maxiter, self.sample_block, self.cg_example_block)
+        outs = self._split(
+            lambda rep, f, e, t: matfree_logit_samples_from_noise(
+                rep, *f, alpha, self.full_set_size, x.to(rep.device), e, t, self.cg_tol,
+                self.cg_maxiter, self.sample_block, self.cg_example_block), eps, eta)
+        out = torch.cat([o.to(device) for o, _ in outs])
+        res = max(float(r) for _, r in outs)
         self.last_cg_residual = float(res)
         # floored at the f32-attainable residual: a tolerance below round-off
         # that bottoms out near 1e-6 is a converged solve, not a stall

@@ -12,7 +12,10 @@ does. A ``BatchNorm``'s statistics ``mean`` and ``var`` are buffers: Flax's
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +73,25 @@ class Conv(nn.Module):
         return F.conv2d(x, self.kernel.permute(3, 2, 0, 1), self.bias, self.strides, pad)
 
 
+# Set by the data-parallel MAP step in each shard's thread: a train-mode
+# BatchNorm then normalises with the moments of the whole batch, as Flax's
+# BatchNorm does under the reference's SPMD program.
+_BATCH_MOMENTS = contextvars.ContextVar("batch_moments", default=None)
+
+
+@contextlib.contextmanager
+def batch_moments(reduce: Callable):
+    """Within the block (and this thread), every train-mode
+    :class:`BatchNorm` passes its shard's channel moments ``(E[x], E[x²],
+    count)`` to ``reduce`` and normalises with the ``(E[x], E[x²])`` it
+    returns: those of the whole batch."""
+    token = _BATCH_MOMENTS.set(reduce)
+    try:
+        yield
+    finally:
+        _BATCH_MOMENTS.reset(token)
+
+
 class BatchNorm(nn.Module):
     """Flax ``nn.BatchNorm`` over the channel axis of NCHW activations
     (``momentum`` 0.99, ``epsilon`` 1e-5).
@@ -80,7 +102,8 @@ class BatchNorm(nn.Module):
     ``momentum·old + (1 − momentum)·batch`` into the ``mean`` and ``var``
     buffers — with the biased variance, where ``F.batch_norm``'s running update
     would use the unbiased one. Under ``torch.func.functional_call`` those
-    buffers are the tensors the caller passed in.
+    buffers are the tensors the caller passed in. Inside :func:`batch_moments`
+    the moments are the whole batch's, across the shards.
     """
 
     def __init__(self, features: int, momentum: float = 0.99, epsilon: float = 1e-5):
@@ -93,8 +116,11 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean, mean2 = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
+            reduce = _BATCH_MOMENTS.get()
+            if reduce is not None:
+                mean, mean2 = reduce(mean, mean2, x.numel() // x.shape[1])
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.copy_(self.momentum * self.mean + (1.0 - self.momentum) * mean)
                 self.var.copy_(self.momentum * self.var + (1.0 - self.momentum) * var)

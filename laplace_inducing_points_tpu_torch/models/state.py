@@ -1,13 +1,15 @@
-"""Model state: the module, its flat weight vector, its BatchNorm statistics
-and its likelihood kind.
+"""Model state: the module, its flat weight vector, its BatchNorm statistics,
+its likelihood kind and, after MAP training, the trainer's Adam state.
 
 Replaces the reference's ``TrainState``
-(``laplace_inducing_points_tpu/models/state.py``) on the serving path: there
-is no optimizer. The module only defines the network's structure; its
-weights are ``flat_params`` and its statistics ``batch_stats`` (the
-counterpart of the reference's ``batch_stats`` collection, ``:20-22``),
-applied through ``torch.func.functional_call``
-(``core.operators.model_outputs``).
+(``laplace_inducing_points_tpu/models/state.py``). The module only defines
+the network's structure; its weights are ``flat_params`` and its statistics
+``batch_stats`` (the counterpart of the reference's ``batch_stats``
+collection, ``:20-22``), applied through ``torch.func.functional_call``
+(``core.operators.model_outputs``). ``opt_state`` is the counterpart of the
+``TrainState``'s ``opt_state`` and ``step``: ``None`` on the serving path,
+an :class:`AdamState` where the state came from ``training.map.train_map``
+or from a train-state checkpoint, from which a resumed MAP run continues.
 """
 
 from __future__ import annotations
@@ -24,6 +26,17 @@ MODEL_KINDS = ("classifier", "regressor")
 
 
 @dataclass
+class AdamState:
+    """The MAP trainer's Adam state as optax keeps it: the step ``count``
+    (Adam's bias correction and the learning-rate schedule both read it) and
+    the first and second moments ``mu`` and ``nu`` of each leaf the optimizer
+    holds (the flat weights, then a regressor's ``logvar``)."""
+    count: int
+    mu: tuple[torch.Tensor, ...]
+    nu: tuple[torch.Tensor, ...]
+
+
+@dataclass
 class ModelState:
     model: nn.Module
     flat_params: torch.Tensor          # (D,) f32, in ravel_pytree order
@@ -32,6 +45,7 @@ class ModelState:
     # BatchNorm_1.var", ...); None: the module's own initial ones (mean 0,
     # var 1); empty for a model without BatchNorm
     batch_stats: Optional[dict[str, torch.Tensor]] = None
+    opt_state: Optional[AdamState] = None
     spec: FlatSpec = field(init=False)
 
     def __post_init__(self):
@@ -62,6 +76,11 @@ class ModelState:
     @property
     def device(self) -> torch.device:
         return self.flat_params.device
+
+    @property
+    def step(self) -> int:
+        """MAP steps taken: the Adam count, 0 without an optimizer state."""
+        return self.opt_state.count if self.opt_state is not None else 0
 
     @property
     def logvar(self) -> torch.Tensor | float:

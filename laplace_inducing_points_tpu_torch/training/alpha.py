@@ -18,9 +18,9 @@ import torch
 
 from laplace_inducing_points_tpu_torch.core import operators as ops
 from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk
-from laplace_inducing_points_tpu_torch.training.map import (evaluate_loader, map_optimizer,
-                                                            map_step, set_lr, trained_state,
-                                                            working_state)
+from laplace_inducing_points_tpu_torch.training.map import (adam_state, evaluate_loader,
+                                                            map_optimizer, map_step, set_lr,
+                                                            trained_state, working_state)
 
 
 def log_marginal_likelihood(alpha, X: torch.Tensor, state,
@@ -78,15 +78,16 @@ def train_map_then_alpha(state, train_loader: Iterable, test_loader: Iterable, *
                          callback: Optional[Callable] = None):
     """MAP epochs at prior precision α, with an α step on the epoch's last
     batch every ``alpha_every`` epochs after ``burnin``; returns ``(trained
-    state, α)``. ``lr`` and ``callback(step, loss)`` are :func:`train_map`'s.
+    state, α)``. ``lr`` and ``callback(step, loss)`` are :func:`train_map`'s;
+    as there, Adam and the schedule continue from ``state.opt_state``.
     """
     flat = state.flat_params.detach().clone().requires_grad_(True)
     work = working_state(state, flat)
-    optimizer, schedule = map_optimizer(flat, lr)
+    optimizer, schedule = map_optimizer(flat, lr, opt_state=state.opt_state)
     log_alpha = torch.tensor(math.log(alpha0), dtype=torch.float32,
                              device=state.device).requires_grad_(True)
     alpha_opt = make_alpha_optimizer(log_alpha, alpha_lr)
-    step, last_batch = 0, None
+    step, last_batch = state.step, None
     for epoch in range(num_epochs):
         alpha = math.exp(log_alpha.item())
         for batch in train_loader:
@@ -104,4 +105,4 @@ def train_map_then_alpha(state, train_loader: Iterable, test_loader: Iterable, *
             nll, acc = evaluate_loader(trained_state(work), test_loader)
             print(f"[MAP+α e{epoch:4d}] NLL={nll:.4f} α={math.exp(log_alpha.item()):.4f} "
                   f"ACC={acc:.4f}")
-    return trained_state(work), math.exp(log_alpha.item())
+    return trained_state(work, opt_state=adam_state(optimizer)), math.exp(log_alpha.item())

@@ -7,12 +7,12 @@ Counterpart of ``laplace_inducing_points_tpu/training/inducing.py``:
 (``:72``), ``_kl_core`` (``:87``), ``kl_objective_gram`` (``:124``),
 ``kl_objective_stochastic`` (``:142``) both ways, ``OBJECTIVES`` (``:340``),
 ``matfree_cg_healthcheck`` (``:472``, one function: the reference's staged
-probes are compile workarounds), ``optimize_step`` (``:684``) for the
-``dense``, ``gram``, ``stochastic`` and ``stochastic_matfree`` objectives,
-``full_set_kl`` (``:724``), ``train_inducing_points_restarts`` (``:733``) and
-``train_inducing_points`` (``:795``) with its divergence guard.
-``gram_chunked`` is a compile workaround of the reference and is not ported
-(ROADMAP, "Not to port").
+probes are compile workarounds), ``kl_grad_gram_chunked`` (``:627``),
+``optimize_step`` (``:684``; ``gram_chunked`` takes the chunk of
+``optimize_step_chunked``, ``:653``) for the ``dense``, ``gram``,
+``gram_chunked``, ``stochastic`` and ``stochastic_matfree`` objectives, ``full_set_kl`` (``:724``),
+``train_inducing_points_restarts`` (``:733``) and ``train_inducing_points``
+(``:795``) with its divergence guard.
 
 The Gram ``Gzz = Rz Rzᵀ`` goes through the ``syrk`` kernel, the long
 products with the rows through ``matmul_nt``/``matmul_nn`` and the stochastic
@@ -21,7 +21,9 @@ kernels too (``ops/cuda``). A step computes ``dL/dZ`` the way the reference's
 chunked gradient does (``kl_grad_gram_chunked``, ``:627``), in eager form: the
 rows without a tape, ``∂L/∂Rz`` by autograd through the algebra on the rows
 and the kernels, then the row build's pullback one example block at a time
-(``core.operators.dense_wt_pullback``). The stochastic objective is computed
+(``core.operators.dense_wt_pullback``); ``gram_chunked`` is that step with
+the rows built and pulled back in chunks of ``example_block or 4`` examples,
+as the reference's is. The stochastic objective is computed
 from the materialized rows in the same way: the same function as the
 reference's jvp/vjp operators, with ``S_X = γ·RxᵀRx + αI`` applied by the
 sweep kernel. :func:`kl_objective_gram` and :func:`kl_objective_stochastic`
@@ -60,9 +62,6 @@ from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nn, matmul_
 from laplace_inducing_points_tpu_torch.ops.cuda.sweep import ggn_sweep
 from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk
 from laplace_inducing_points_tpu_torch.utils.checkpoint import save_array
-
-NOT_PORTED = ("the {!r} objective is not ported (ROADMAP, 'Not to port'): "
-              "'dense', 'gram', 'stochastic' and 'stochastic_matfree' are")
 
 
 def kl_objective_dense(Z: torch.Tensor, X: torch.Tensor, state, alpha: float,
@@ -199,6 +198,18 @@ def kl_value_and_grad_gram(Z: torch.Tensor, X: torch.Tensor, state, alpha: float
     loss, ct = kl_rows_value_and_grad(Rz, Rx, alpha, beta, gamma, include_constants)
     del Rz, Rx
     return loss, ops.dense_wt_pullback(state, Z, ct, example_block=example_block)
+
+
+def kl_grad_gram_chunked(Z: torch.Tensor, X: torch.Tensor, state, alpha: float, *,
+                         full_set_size: Optional[int] = None, chunk: int = 4,
+                         include_constants: bool = True):
+    """``(KL, dKL/dZ)`` of the gram KL with the rows of ``Z`` and ``X`` built,
+    and the row cotangent pulled back, ``chunk`` examples at a time: only one
+    chunk's activations and second-order tape are alive at once. The same
+    function as :func:`kl_value_and_grad_gram`."""
+    return kl_value_and_grad_gram(Z, X, state, alpha, full_set_size=full_set_size,
+                                  include_constants=include_constants,
+                                  example_block=chunk)
 
 
 @dataclass(frozen=True)
@@ -480,6 +491,8 @@ def kl_value_and_grad_matfree(Z: torch.Tensor, X: torch.Tensor, state, alpha: fl
 OBJECTIVES = {
     "dense": kl_objective_dense,
     "gram": kl_objective_gram,
+    # the same function; its step builds and pulls back the rows in chunks
+    "gram_chunked": kl_objective_gram,
     "stochastic": kl_objective_stochastic,
     "stochastic_matfree": partial(kl_objective_stochastic, materialize_w=False),
 }
@@ -607,7 +620,9 @@ def optimize_step(Z: torch.Tensor, X: torch.Tensor, state, alpha: float,
     fresh ones from. ``matfree``: the matfree objective's knobs
     (``cg_tol``, ``cg_maxiter``, ``precond_rank``, ``precond_power``,
     ``precond_sketch``, ``cg_example_block``)."""
-    if objective == "gram":
+    if objective in ("gram", "gram_chunked"):
+        if objective == "gram_chunked":
+            example_block = example_block or 4
         loss, grad = kl_value_and_grad_gram(Z, X, state, alpha,
                                             full_set_size=full_set_size,
                                             example_block=example_block)
@@ -629,7 +644,7 @@ def optimize_step(Z: torch.Tensor, X: torch.Tensor, state, alpha: float,
             loss, grad = kl_value_and_grad_matfree(Z, X, state, alpha, probes, **knobs,
                                                    **matfree)
     else:
-        raise NotImplementedError(NOT_PORTED.format(objective))
+        raise ValueError(f"unknown objective {objective!r}: one of {sorted(OBJECTIVES)}")
     Z.grad = grad
     optimizer.step()
     Z.grad = None
@@ -718,7 +733,7 @@ def train_inducing_points(state, z_init: torch.Tensor, batches: Iterable, *,
     passed a check is returned, never a NaN ``Z``.
     """
     if objective not in OBJECTIVES:
-        raise NotImplementedError(NOT_PORTED.format(objective))
+        raise ValueError(f"unknown objective {objective!r}: one of {sorted(OBJECTIVES)}")
     if objective.startswith("stochastic") and generator is None:
         generator = torch.Generator(device=z_init.device).manual_seed(0)
     matfree = {}

@@ -1,8 +1,11 @@
 """The port's evaluation CLI end to end on the CPU (the weight and the
-matfree predictives, and the matfree objective through ``train_scale``), its
-data pipeline, and the rule that the port never imports JAX."""
+matfree predictives, ``--mesh`` and ``--profile``, and the matfree objective
+through ``train_scale``), its data pipeline, the port's CLIs against their
+JAX twins' options, and the rule that the port never imports JAX."""
 
+import glob
 import gzip
+import importlib
 import json
 import math
 import os
@@ -70,14 +73,53 @@ def test_evaluate_main_end_to_end_on_cpu(tmp_path):
     assert json.loads(out_json.read_text().splitlines()[0])["nll"] == rec["nll"]
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--mesh", "--predictive", "cov"], "ROADMAP"),
-    (["--mesh"], "ROADMAP"),
-])
-def test_evaluate_refuses_unported_paths(tmp_path, extra, match):
+@pytest.mark.parametrize("predictive", ["weight", "cov"])
+def test_evaluate_mesh_on_one_device(tmp_path, capsys, predictive):
+    """``--mesh`` with one device (here the CPU) is a no-op, as in the
+    reference: the same metrics as without it, no mesh line."""
     _write_checkpoints(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
-        evaluate.main(_argv(tmp_path, *extra))
+    base = _argv(tmp_path, "--predictive", predictive)
+    meshed = evaluate.main([*base, "--mesh"])
+    assert "[mesh]" not in capsys.readouterr().out
+    plain = evaluate.main(base)
+    for key in ("nll", "acc", "brier", "ece"):
+        assert meshed[0][key] == plain[0][key], key
+
+
+@pytest.mark.parametrize("iters", [1, 2])
+def test_evaluate_profile_traces_the_last_repetition(tmp_path, capsys, iters):
+    _write_checkpoints(tmp_path)
+    trace_dir = tmp_path / "trace"
+    argv = _argv(tmp_path, "--profile", str(trace_dir))
+    argv[argv.index("--iters") + 1] = str(iters)
+    records = evaluate.main(argv)
+    out = capsys.readouterr().out
+    assert len(records) == iters
+    assert ("[profile] WARNING: --iters 1" in out) == (iters == 1)
+    assert f"[profile] device trace of repetition {iters - 1} written to {trace_dir}" in out
+    (path,) = glob.glob(str(trace_dir / "*.pt.trace.json"))
+    names = {e.get("name") for e in json.load(open(path))["traceEvents"]}
+    assert "aten::linalg_eigh" not in names        # the factor build is not traced
+    assert "aten::randn" in names                  # the repetition's draws are
+
+
+@pytest.mark.parametrize("name", ["train_scale", "evaluate", "main_toy", "import_data"])
+def test_port_parsers_accept_every_jax_option(name):
+    """Each port CLI takes every option string of its JAX twin (and
+    ``--device``), with the same positional modes."""
+    jax_parser = importlib.import_module(f"laplace_inducing_points_tpu.cli.{name}").build_parser()
+    port_parser = importlib.import_module(
+        f"laplace_inducing_points_tpu_torch.cli.{name}").build_parser()
+
+    def options(parser):
+        return {s for a in parser._actions for s in a.option_strings} - {"-h", "--help"}
+
+    def modes(parser):
+        return [a.choices for a in parser._actions if not a.option_strings]
+
+    assert options(jax_parser) <= options(port_parser)
+    assert options(port_parser) - options(jax_parser) <= {"--device"}
+    assert modes(port_parser) == modes(jax_parser)
 
 
 def _matfree_config(tmp_path) -> str:
@@ -165,10 +207,12 @@ def test_port_imports_no_jax():
         "import laplace_inducing_points_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 29, names\n"
+        "assert len(names) >= 36, names\n"
         "new = {pkg.__name__ + '.' + m for m in ('training.inducing', 'training.map', "
         "'cli.train_scale', 'training.alpha', 'training.grid_search', 'data.native', "
-        "'ops.cg', 'ops.nystrom', 'cli.main_toy', 'data.toy', 'viz.nplot', 'viz.style')}\n"
+        "'ops.cg', 'ops.nystrom', 'cli.main_toy', 'data.toy', 'viz.nplot', 'viz.style', "
+        "'parallel', 'parallel.mesh', 'parallel.sharded_ops', 'utils.profiling', "
+        "'data.import_data', 'cli.import_data')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'laplace_inducing_points_tpu'))\n"
@@ -177,7 +221,27 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 29
+    assert int(out.stdout.strip()) >= 36
+
+
+def test_port_and_smoke_import_with_jax_blocked():
+    """With ``jax`` (and the JAX package) set to None in sys.modules, so that
+    any import of them fails, every port module and ``chip_smoke.py``
+    import."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'laplace_inducing_points_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import laplace_inducing_points_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "assert callable(chip_smoke.main)\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 36
 
 
 @pytest.mark.parametrize("train", [True, False])

@@ -41,15 +41,14 @@ from laplace_inducing_points_tpu_torch.core.params import (FlatSpec, batch_stats
                                                            params_from_jax)
 from laplace_inducing_points_tpu_torch.data import scale as tscale
 from laplace_inducing_points_tpu_torch.models import scale as tmodels
-from laplace_inducing_points_tpu_torch.models.layers import (BatchNorm, Conv, Dense,
-                                                             same_padding)
+from laplace_inducing_points_tpu_torch.models.layers import Conv, same_padding
 from laplace_inducing_points_tpu_torch.models.registry import get_model
 from laplace_inducing_points_tpu_torch.models.state import ModelState
 from laplace_inducing_points_tpu_torch.training import inducing as tind
 from laplace_inducing_points_tpu_torch.training import map as tmap
 from laplace_inducing_points_tpu_torch.utils import checkpoint as tckpt
 
-from torch_twins import convert_twins
+from torch_twins import bn_data as _bn_data, bn_twins as _bn_twins, convert_twins
 
 MLP = dict(input_shape=(28, 28, 1), num_hidden=[256, 128], num_layers=2, num_classes=10)
 
@@ -215,45 +214,6 @@ def test_model_state_checks_the_statistics(resnet_twins):
 
 
 # --- a small BatchNorm net: MAP statistics, rows, gram KL ---------------------
-
-class JaxTinyBNNet(fnn.Module):
-    """Conv + BN + residual block + head (``tests/test_bn_models.py``)."""
-
-    @fnn.compact
-    def __call__(self, x, train: bool = False):
-        x = fnn.Conv(4, (3, 3), padding="SAME", use_bias=False)(x)
-        x = fnn.BatchNorm(use_running_average=not train)(x)
-        x = fnn.relu(x)
-        x = jmodels.BasicBlock(4)(x, train=train)
-        x = jmodels.BasicBlock(6, stride=2)(x, train=train)
-        x = jnp.mean(x, axis=(1, 2))
-        return fnn.Dense(3)(x)
-
-
-class TinyBNNet(torch.nn.Module):
-    def __init__(self):
-        super().__init__()
-        self.Conv_0 = Conv(2, 4, (3, 3), padding="SAME", use_bias=False)
-        self.BatchNorm_0 = BatchNorm(4)
-        self.BasicBlock_0 = tmodels.BasicBlock(4, 4)
-        self.BasicBlock_1 = tmodels.BasicBlock(4, 6, stride=2)
-        self.Dense_0 = Dense(6, 3)
-
-    def forward(self, x, train: bool = False):
-        x = torch.relu(self.BatchNorm_0(self.Conv_0(x.permute(0, 3, 1, 2)), train))
-        x = self.BasicBlock_1(self.BasicBlock_0(x, train), train)
-        return self.Dense_0(x.mean(dim=(2, 3)))
-
-
-def _bn_twins():
-    return convert_twins(JaxTinyBNNet(), TinyBNNet(), jnp.zeros((1, 5, 5, 2)), seed=3)
-
-
-def _bn_data(n, seed):
-    rng = np.random.default_rng(seed)
-    return (rng.uniform(0, 1, (n, 5, 5, 2)).astype(np.float32),
-            rng.integers(0, 3, n).astype(np.int32))
-
 
 def test_bn_map_steps_update_the_statistics_as_flax():
     """3 MAP steps on a batch of 6 5×5 images (n = 150 values per channel in

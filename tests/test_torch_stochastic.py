@@ -304,7 +304,8 @@ def test_materialize_w_false_raises():
                                             precond_rank=4, **knobs)
         mat = tind.kl_objective_stochastic(*args, probes, **knobs)
     assert float(free) == pytest.approx(float(mat), rel=1e-4)
-    assert set(tind.OBJECTIVES) == {"dense", "gram", "stochastic", "stochastic_matfree"}
+    assert set(tind.OBJECTIVES) == {"dense", "gram", "gram_chunked", "stochastic",
+                                    "stochastic_matfree"}
 
 
 def test_optimize_step_stochastic_matches_jax():

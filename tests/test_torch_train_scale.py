@@ -1,10 +1,12 @@
 """The port's trainer CLI end to end on the CPU at a tiny configuration, chained
 into the evaluation CLI: α given, from the grid search and from the evidence;
-and its refusals of what is not ported."""
+``--continue``, ``--profile``, ``--objective gram_chunked`` and ``--no-mesh``."""
 
+import glob
 import json
 import math
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -14,8 +16,8 @@ from laplace_inducing_points_tpu.utils import checkpoint as jckpt
 from laplace_inducing_points_tpu_torch.cli import evaluate, train_scale
 from laplace_inducing_points_tpu_torch.core.params import (FlatSpec, lecun_normal_params,
                                                            params_from_jax)
-from laplace_inducing_points_tpu_torch.models.scale import ResNet1M
-from laplace_inducing_points_tpu_torch.utils.checkpoint import save_params
+from laplace_inducing_points_tpu_torch.models.scale import LeNet5, ResNet1M
+from laplace_inducing_points_tpu_torch.utils.checkpoint import load_train_state, save_params
 
 from test_torch_cli import CONFIG, REPO
 
@@ -136,19 +138,84 @@ def test_alpha_from_the_evidence_on_cpu(tmp_path):
     assert result["Z_moved"] > 0
 
 
-@pytest.mark.parametrize("extra", [
-    ["--continue"],
-    ["--objective", "gram_chunked"],
-    ["--profile", "trace"],
-    ["--mesh"],
-    ["--mesh", "--objective", "stochastic_matfree"],
-    ["--continue", "--objective", "dense"],
-])
-def test_unported_flags_raise(tmp_path, extra):
-    argv = ["full_pipeline", *extra, *_common(tmp_path), "--alpha_ip", "0.005"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_scale.main(argv)
-    assert not (tmp_path / "map").exists()       # refused before any work
+@pytest.fixture(scope="module")
+def trained_map(tmp_path_factory):
+    """The ``map`` directory of one ``train_map`` run (31 steps), for the
+    tests to copy."""
+    root = tmp_path_factory.mktemp("trained")
+    train_scale.main(["train_map", *_common(root)])
+    return root / "map"
+
+
+def _with_map(tmp_path, trained_map):
+    shutil.copytree(trained_map, tmp_path / "map")
+    return _common(tmp_path)
+
+
+def test_continue_resumes_the_map_run(tmp_path, trained_map, capsys):
+    """``train_map --continue`` trains map.epochs more epochs from the saved
+    Adam state: the step count goes on (31 -> 62) and the cosine schedule,
+    past its end, stays at its floor 0.08 lr; the file then holds step 62."""
+    common = _with_map(tmp_path, trained_map)
+    result = train_scale.main(["train_map", "--continue", *common])
+    assert "[resume] continuing from step 31" in capsys.readouterr().out
+    stats = result["map"]
+    assert (stats["start_step"], stats["end_step"], stats["steps"]) == (31, 62, 31)
+    np.testing.assert_allclose(stats["start_lr"], 0.08 * 5e-4, rtol=1e-6)
+    state = load_train_state(str(tmp_path / "map"), "map_mnist", LeNet5(), "classifier",
+                             torch.device("cpu"))
+    assert state.step == 62 and math.isfinite(stats["loss_last"])
+
+
+@pytest.mark.parametrize("mode", ["train_map", "train_inducing"])
+def test_continue_without_a_checkpoint_starts_fresh(tmp_path, capsys, mode):
+    """No train state: the reference's line, then the fresh seeded init (for
+    ``train_inducing`` the Z training runs on it, as the reference's does)."""
+    result = train_scale.main([mode, "--continue", "--alpha_ip", "0.005", *_common(tmp_path)])
+    assert "[resume] no checkpoint found — starting fresh" in capsys.readouterr().out
+    if mode == "train_map":
+        assert result["map"]["start_step"] == 0 and result["map"]["end_step"] == 31
+    else:
+        assert "map" not in result and result["Z_moved"] > 0
+        assert not (tmp_path / "map").exists()
+
+
+def test_profile_traces_the_inducing_phase(tmp_path, trained_map, capsys):
+    common = _with_map(tmp_path, trained_map)
+    trace_dir = tmp_path / "trace"
+    train_scale.main(["train_inducing", "--alpha_ip", "0.005", "--profile", str(trace_dir),
+                      *common])
+    assert f"[profile] device trace written to {trace_dir}" in capsys.readouterr().out
+    (path,) = glob.glob(str(trace_dir / "*.pt.trace.json"))
+    names = {e.get("name") for e in json.load(open(path))["traceEvents"]}
+    assert "aten::cholesky_solve" in names          # the KL algebra of the Z steps
+
+
+def test_profile_with_train_map_exits_before_any_work(tmp_path):
+    with pytest.raises(SystemExit, match="inducing-training phase"):
+        train_scale.main(["train_map", "--profile", str(tmp_path / "trace"), *_common(tmp_path)])
+    assert not (tmp_path / "map").exists() and not (tmp_path / "trace").exists()
+
+
+def test_gram_chunked_objective_trains_the_gram_z(tmp_path, trained_map):
+    """``--objective gram_chunked`` (rows in chunks of 4 examples) trains the
+    same Z as ``gram`` from the same MAP, and says so in the run meta."""
+    common = _with_map(tmp_path, trained_map)
+    Zs = {}
+    for objective in ("gram_chunked", "gram"):
+        train_scale.main(["train_inducing", "--objective", objective, "--alpha_ip", "0.005",
+                          *common])
+        assert jckpt.load_run_meta(str(tmp_path / "ind"), "ind_mnist")["objective"] == objective
+        Zs[objective] = jckpt.load_array(str(tmp_path / "ind"), "ind_mnist", 3)
+    np.testing.assert_allclose(Zs["gram_chunked"], Zs["gram"], rtol=1e-5, atol=1e-6)
+
+
+def test_no_mesh_runs_the_pipeline(tmp_path, trained_map, capsys):
+    """``--no-mesh`` (the reference's flag) on one device: the same run, no
+    mesh either way."""
+    common = _with_map(tmp_path, trained_map)
+    result = train_scale.main(["train_inducing", "--no-mesh", "--alpha_ip", "0.005", *common])
+    assert result["Z_moved"] > 0 and "[mesh]" not in capsys.readouterr().out
 
 
 def test_cuda_without_gpu_raises(tmp_path):

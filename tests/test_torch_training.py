@@ -180,18 +180,6 @@ def test_optimize_step_matches_jax(kind):
     _assert_adam_steps_agree((z.numpy() - Z) / lr, (np.asarray(new_ref) - Z) / lr)
 
 
-@pytest.mark.parametrize("objective", ["gram_chunked"])
-def test_other_objectives_raise(objective):
-    _, pstate, Z, X, alpha, N = _case("classifier")
-    z = torch.from_numpy(Z)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tind.optimize_step(z, torch.from_numpy(X), pstate, alpha,
-                           tind.make_optimizer(z, 0.01), objective=objective)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tind.train_inducing_points(pstate, z, iter([]), alpha=alpha, num_steps=1,
-                                   lr=0.01, objective=objective)
-
-
 def test_full_set_kl_matches_jax():
     jstate, pstate, Z, X, alpha, N = _case("classifier")
     ref = float(jind.full_set_kl(jnp.asarray(Z), jnp.asarray(X), jstate, alpha, N))

@@ -7,17 +7,21 @@ numpy from a seed: a Flax parameter tree converted with
 
 from __future__ import annotations
 
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import torch
 
+from laplace_inducing_points_tpu.models import scale as jmodels
 from laplace_inducing_points_tpu.models.scale import LeNet5 as JaxLeNet5
 from laplace_inducing_points_tpu.models.state import create_train_state
 from laplace_inducing_points_tpu.models.toy import (SimpleClassifier as JaxClassifier,
                                                     SimpleRegressor as JaxRegressor)
 from laplace_inducing_points_tpu_torch.core.params import batch_stats_from_jax, params_from_jax
+from laplace_inducing_points_tpu_torch.models import scale as tmodels
+from laplace_inducing_points_tpu_torch.models.layers import BatchNorm, Conv, Dense
 from laplace_inducing_points_tpu_torch.models.scale import LeNet5
 from laplace_inducing_points_tpu_torch.models.state import ModelState
 from laplace_inducing_points_tpu_torch.models.toy import SimpleClassifier, SimpleRegressor
@@ -140,3 +144,46 @@ def jax_state64(jstate):
     """``jstate`` with float64 parameters; use under ``jax.enable_x64(True)``."""
     return jstate.replace(params=jax.tree.map(
         lambda a: jnp.asarray(np.asarray(a, np.float64)), jstate.params))
+
+
+# --- a small BatchNorm net ---------------------------------------------------
+
+class JaxTinyBNNet(fnn.Module):
+    """Conv + BN + residual block + head (``tests/test_bn_models.py``)."""
+
+    @fnn.compact
+    def __call__(self, x, train: bool = False):
+        x = fnn.Conv(4, (3, 3), padding="SAME", use_bias=False)(x)
+        x = fnn.BatchNorm(use_running_average=not train)(x)
+        x = fnn.relu(x)
+        x = jmodels.BasicBlock(4)(x, train=train)
+        x = jmodels.BasicBlock(6, stride=2)(x, train=train)
+        x = jnp.mean(x, axis=(1, 2))
+        return fnn.Dense(3)(x)
+
+
+class TinyBNNet(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.Conv_0 = Conv(2, 4, (3, 3), padding="SAME", use_bias=False)
+        self.BatchNorm_0 = BatchNorm(4)
+        self.BasicBlock_0 = tmodels.BasicBlock(4, 4)
+        self.BasicBlock_1 = tmodels.BasicBlock(4, 6, stride=2)
+        self.Dense_0 = Dense(6, 3)
+
+    def forward(self, x, train: bool = False):
+        x = torch.relu(self.BatchNorm_0(self.Conv_0(x.permute(0, 3, 1, 2)), train))
+        x = self.BasicBlock_1(self.BasicBlock_0(x, train), train)
+        return self.Dense_0(x.mean(dim=(2, 3)))
+
+
+def bn_twins():
+    """:func:`convert_twins` of the tiny BatchNorm net (5×5×2 inputs)."""
+    return convert_twins(JaxTinyBNNet(), TinyBNNet(), jnp.zeros((1, 5, 5, 2)), seed=3)
+
+
+def bn_data(n: int, seed: int):
+    """``n`` seeded 5×5×2 images and 3-class labels."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0, 1, (n, 5, 5, 2)).astype(np.float32),
+            rng.integers(0, 3, n).astype(np.int32))
