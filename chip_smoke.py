@@ -156,6 +156,7 @@ exits non-zero without printing a result:
 30. ``gram_chunked`` against ``gram`` on phase 7's MAP, Z and X: the two
     stagings in float64 (KL relative 1e-6, dL/dZ relative L2 1e-5); in
     float32 the chunked rows (1e-4) and pullback (1e-5) against one block's,
+    the chunked rows against float64 (2x the cuDNN-off chunks' error),
     and each step's dL/dZ against float64 (the chunked one within 2x the
     gram one's); warm step time and peak memory of each, and the same at
     matfree1k's materialized size (M = 1,024, d_z = 10,240);
@@ -171,7 +172,18 @@ exits non-zero without printing a result:
     path within 10x the CG residual float32 reaches), with a second
     factor build's distance printed, and ``evaluate --mesh`` and
     ``train_scale`` without ``--no-mesh`` on one GPU (no mesh there, as in the
-    reference).
+    reference);
+32. the convolution policy (``utils.device.set_conv_policy``): every route
+    of the port's convolutions (rows, row pullback, the matfree factor, the
+    MAP gradient, the serving push-forward, the cov Jacobians) at every size
+    the scale configs give it, on seeded LeNet5 and ResNet1M: float32 against
+    float64 within 2x the cuDNN-off path's error, rows and MAP gradients
+    bitwise equal in two evaluations, no Winograd or FFT kernel; the same
+    routes and the steps' times without the policy (a subprocess,
+    ``chip_smoke.py --conv-before OUT``); two factor builds' logits on the
+    same noise;
+33. the toy generators: ``cli.make_data`` for each dataset, then
+    ``main_toy full_pipeline`` on banana at a data seed no fixture holds.
 
 The line before the last is the card's ``nvidia-smi`` line; the one before
 it is the per-kernel JSON; the last line is ``{"ok": true, "device": ...}``.
@@ -182,6 +194,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -3034,7 +3047,9 @@ def phase_gram_chunked(workdir: Path, train: dict, kernel_rows: dict, backward_r
     CHUNKED_LOSS_TOL and dL/dZ within CHUNKED_GRAD_TOL. The port's entries,
     in float32 through the kernels: the rows built in chunks must be within
     REL_TOL of one block's, one cotangent pulled back in chunks within
-    CHUNKED_GRAD_TOL of one block's, and ``kl_grad_gram_chunked``'s KL and
+    CHUNKED_GRAD_TOL of one block's, the chunked rows no further from float64
+    than F64_RATIO times the same chunks built by PyTorch's own convolutions
+    (cuDNN off), and ``kl_grad_gram_chunked``'s KL and
     dL/dZ each no further from float64 than F64_RATIO times
     ``kl_value_and_grad_gram``'s: two float32 evaluations of this step
     differ by their Gram algebra's round-off (each ~1e-3 from float64 at
@@ -3084,9 +3099,11 @@ def phase_gram_chunked(workdir: Path, train: dict, kernel_rows: dict, backward_r
     with torch.no_grad():
         R_one, R_chunk = ops.dense_wt(state, Z), ops.dense_wt(state, Z, example_block=4)
         R64 = ops.dense_wt(s64, Z.double())
+        with torch.backends.cudnn.flags(enabled=False):
+            R_off = ops.dense_wt(state, Z, example_block=4)
     rel_rows = _rel(R_chunk, R_one)
-    rows_err = (_rel(R_one, R64), _rel(R_chunk, R64))
-    del R_one, R_chunk, R64
+    rows_err = (_rel(R_one, R64), _rel(R_chunk, R64), _rel(R_off, R64))
+    del R_one, R_chunk, R64, R_off
     ct = ct64.float()
     pull_one = ops.dense_wt_pullback(state, Z, ct)
     pull_chunk = ops.dense_wt_pullback(state, Z, ct, example_block=4)
@@ -3100,7 +3117,8 @@ def phase_gram_chunked(workdir: Path, train: dict, kernel_rows: dict, backward_r
           f"{rel_g64:.2e} (limit {CHUNKED_GRAD_TOL:g})")
     print(f"M=100 in float32: rows in chunks of 4 against one block rel {rel_rows:.2e} (limit "
           f"{REL_TOL:g}; each against float64: one block {rows_err[0]:.2e}, chunks "
-          f"{rows_err[1]:.2e}); one cotangent pulled back in chunks against one block rel "
+          f"{rows_err[1]:.2e}, limit {F64_RATIO} x the cuDNN-off chunks' {rows_err[2]:.2e}); "
+          f"one cotangent pulled back in chunks against one block rel "
           f"{rel_pull:.2e} (limit {CHUNKED_GRAD_TOL:g}; one block against float64 "
           f"{pull_err:.2e}); the port's whole step against float64: KL gram "
           f"{err['gram'][0]:.2e}, gram_chunked {err['gram_chunked'][0]:.2e}; dL/dZ gram "
@@ -3112,6 +3130,9 @@ def phase_gram_chunked(workdir: Path, train: dict, kernel_rows: dict, backward_r
         raise AssertionError("the two stagings of the gram step differ in float64")
     if not (rel_rows <= REL_TOL and rel_pull <= CHUNKED_GRAD_TOL):
         raise AssertionError("gram_chunked's rows or pullback differ from gram's in float32")
+    if not rows_err[1] <= F64_RATIO * rows_err[2]:
+        raise AssertionError(f"gram_chunked's rows are {rows_err[1]:.2e} from float64, the "
+                             f"cuDNN-off chunks {rows_err[2]:.2e}")
     for k, what in enumerate(("KL", "dL/dZ")):
         if not err["gram_chunked"][k] <= F64_RATIO * err["gram"][k]:
             raise AssertionError(f"gram_chunked's {what} is {err['gram_chunked'][k]:.2e} from "
@@ -3379,6 +3400,388 @@ def run_last_modules(workdir: Path, train: dict, kernel_rows: dict, backward_row
     return {"gram_chunked": chunked, "mesh": mesh}
 
 
+# --- phase 32: the convolution policy ------------------------------------------
+
+TRANSFORMS = ("winograd", "fft")      # cuDNN kernel names of the engines the policy blocks
+CONV_ALPHA = 0.005
+CONV_MODELS = {"LeNet5": "mnist", "ResNet1": "cifar10"}
+SURROGATE_ONLY = "data/no_such_dir"   # no files there: load_arrays gives the seeded surrogate
+# shapes held beside the configs': LeNet5's rows in blocks of 8, 4 and 1 and
+# ResNet1M's in blocks of 1, where cuDNN took Winograd and FFT engines, and
+# ResNet1M's MAP at batch 16
+NAMED_BLOCKS = {"LeNet5": (8, 4, 1), "ResNet1": (1,)}
+
+
+def _blocks_of(n: int, block) -> set:
+    """The example counts of the calls that build ``n`` examples' rows in blocks
+    of ``block`` (``None``: one call)."""
+    if not block or block >= n:
+        return {n}
+    return {block} | ({n % block} if n % block else set())
+
+
+def _conv_shapes() -> dict:
+    """Per conv model, the sizes each convolution route runs at under the 13
+    scale configs and ``gram_chunked`` (read from ``configs/scale/*.yml``):
+    rows and pullback (M and ip.batch_size in blocks of ip.example_block, and
+    of ``example_block or 4`` for gram_chunked), the MAP batch and its halves
+    on a mesh of two, the matfree factor's ``cg_example_block``, the serving
+    push-forward's draws per call (ip.mc_samples in sampling.sample_block),
+    the cov predictive's ``jac_block``."""
+    from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
+    shapes = {m: {"rows": set(NAMED_BLOCKS[m]), "map": set(), "matfree": set(),
+                  "serving": set(), "cov": set()} for m in CONV_MODELS}
+    for path in sorted(Path("configs/scale").glob("*.yml")):
+        cfg = load_experiment_config(str(path))
+        model = cfg["model"]["name"]
+        if model not in CONV_MODELS:
+            continue
+        ip, sampling = cfg["optimization"]["ip"], cfg.get("sampling") or {}
+        s = shapes[model]
+        # the matfree objective builds rows of X only; the gram objectives of Z
+        # and X, gram_chunked in blocks of example_block or 4
+        for n in ((ip["batch_size"],) if ip["objective"] == "stochastic_matfree"
+                  else (ip["m"], ip["batch_size"])):
+            s["rows"] |= _blocks_of(n, ip.get("example_block"))
+            if ip["objective"] != "stochastic_matfree":
+                s["rows"] |= _blocks_of(n, ip.get("example_block") or 4)
+        batch = cfg["optimization"]["map"]["batch_size"]
+        s["map"] |= {batch, batch // 2}
+        if ip.get("cg_example_block"):
+            s["matfree"].add(ip["cg_example_block"])
+        s["serving"] |= _blocks_of(ip["mc_samples"], sampling.get("sample_block"))
+        s["cov"].add(sampling.get("jac_block"))
+    shapes["ResNet1"]["map"].add(16)
+    return {m: {k: sorted(v, key=lambda b: (b is None, b or 0)) for k, v in s.items()}
+            for m, s in shapes.items()}
+
+
+def _conv_setup(label: str):
+    """Seeded weights of ``label`` on the card and its surrogate inputs (the
+    same in every process): ``(state, float64 state, images, labels)``."""
+    from laplace_inducing_points_tpu_torch.core.params import (FlatSpec, lecun_normal_params,
+                                                               params_from_jax)
+    from laplace_inducing_points_tpu_torch.data.scale import load_arrays
+    from laplace_inducing_points_tpu_torch.models.scale import LeNet5, ResNet1M
+    from laplace_inducing_points_tpu_torch.models.state import ModelState
+    model = LeNet5() if label == "LeNet5" else ResNet1M(10)
+    flat, _ = params_from_jax(lecun_normal_params(FlatSpec.from_module(model), SEED))
+    state = ModelState(model.cuda(), flat.cuda(), "classifier")
+    with contextlib.redirect_stdout(None):
+        x, y = load_arrays(CONV_MODELS[label], train=True, root=SURROGATE_ONLY)
+    return (state, _state64(state), torch.as_tensor(x[:1280]).cuda(),
+            torch.as_tensor(y[:1280]).long().cuda())
+
+
+def _map_grad(state, x, y):
+    from laplace_inducing_points_tpu_torch.training.map import map_loss
+    flat = state.flat_params.clone().requires_grad_()
+    loss, _ = map_loss(state, flat, x, y, CONV_ALPHA)
+    return torch.autograd.grad(loss, flat)[0]
+
+
+def _conv_routes(label: str, setup, shapes: dict, only=None) -> list:
+    """``(name, gated bitwise, fn)``: each route of the port's convolutions at
+    each of ``shapes``; ``fn(state, cast)`` computes it on a state of either
+    precision with its inputs cast to that precision."""
+    from torch.func import vmap
+
+    from laplace_inducing_points_tpu_torch.core import operators as ops
+    state, _, x, y = setup
+    D, K = state.spec.num_params, 10
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    rows_max = max(b for b in shapes["rows"] if b is not None)
+    ct = torch.randn(rows_max * K, D, device="cuda", generator=gen)
+    draws = torch.randn(max(shapes["serving"]), D, device="cuda", generator=gen) * 0.05
+    probes = torch.randn(8, max(shapes["matfree"], default=0) * K, device="cuda", generator=gen)
+    batch_b = 256 if label == "LeNet5" else 32        # test batch of the pushed-forward
+    routes = []
+    for b in shapes["rows"]:
+        routes.append((f"rows, block of {b}", True,
+                       lambda st, c, b=b: ops.dense_wt(st, c(x[:b]))))
+        routes.append((f"row pullback, block of {b}", False,
+                       lambda st, c, b=b: ops.dense_wt_pullback(st, c(x[:b]), c(ct[:b * K]))))
+    for b in shapes["matfree"]:
+        routes.append((f"matfree W factor (jvp + vjp), block of {b}", False,
+                       lambda st, c, b=b: ops.make_w_factor(st, c(x[:b]), example_block=b)
+                       .gram_matmat(c(probes[:, :b * K]))))
+    for n in shapes["map"]:
+        routes.append((f"MAP gradient, batch {n}", True,
+                       lambda st, c, n=n: _map_grad(st, c(x[:n]), y[:n])))
+    for s in shapes["serving"]:
+        routes.append((f"serving push-forward, {s} draws on {batch_b} images", False,
+                       lambda st, c, s=s: vmap(ops.linearize_model(st, c(x[:batch_b])).jvp)(
+                           c(draws[:s]))))
+    for jb in shapes["cov"]:
+        routes.append((f"cov Jacobians, {batch_b} images, jac_block {jb}", False,
+                       lambda st, c, jb=jb: torch.cat([
+                           t.reshape(-1) for t in ops.predictive_jac_stats(
+                               st, c(x[:batch_b]), c(ct[:K * 4]), jac_block=jb)])))
+    return [r for r in routes if only is None or r[0] in only]
+
+
+def _transform_names(fn) -> list:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    return sorted({n.split("(")[0].replace("void ", "")[:48] for n in names
+                   if any(w in n.lower() for w in TRANSFORMS)})
+
+
+def _measure_routes(label: str, setup, routes: list, with_off: bool = True) -> dict:
+    """Each route's float64 error, whether two evaluations are bitwise equal,
+    and the Winograd and FFT kernels it launched, under the cuDNN settings in
+    force; with ``with_off`` also the error of the cuDNN-off path (PyTorch's
+    own convolutions) on the same inputs."""
+    state, s64, _, _ = setup
+    out = {}
+    for name, _, fn in routes:
+        with torch.no_grad() if "gradient" not in name and "pullback" not in name \
+                else contextlib.nullcontext():
+            ref = fn(s64, lambda t: t.double()).detach()
+            a, b = (fn(state, lambda t: t).detach() for _ in range(2))
+            row = {"err": _rel(a, ref), "bitwise": bool(torch.equal(a, b)),
+                   "transforms": _transform_names(lambda: fn(state, lambda t: t))}
+            if with_off:
+                with torch.backends.cudnn.flags(enabled=False):
+                    row["err_off"] = _rel(fn(state, lambda t: t).detach(), ref)
+        out[f"{label} {name}"] = row
+        del ref, a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cost_steps(setups: dict) -> dict:
+    """Warm host seconds (synchronised, after one warm-up: the median of 3
+    MAP steps, of 2 LeNet5 steps, one of the others) of the steps the policy
+    could slow: LeNet5's MAP step (batch 256), gram Z step
+    (M = 100, d_x = 1,280), factor build and serving batch (S = 200, B = 256);
+    ResNet1M's MAP step (256), Z step (M = 50, 32 points, blocks of 4) and
+    serving batch (S = 200 in blocks of 25, B = 256); the matfree1k Z step
+    (M = 1,024, the config's ip knobs), all on seeded weights."""
+    from laplace_inducing_points_tpu_torch.data.scale import load_arrays
+    from laplace_inducing_points_tpu_torch.inference.lla import ScalableLLAPredictor
+    from laplace_inducing_points_tpu_torch.training.inducing import (kl_value_and_grad_gram,
+                                                                     kl_value_and_grad_matfree)
+    from laplace_inducing_points_tpu_torch.training.map import map_step, working_state
+    from laplace_inducing_points_tpu_torch.utils.config import load_experiment_config
+
+    def warm(fn, reps=2):
+        fn()
+        return statistics.median(_host_s(fn)[1] for _ in range(reps))
+
+    def map_s(state, x, y):
+        work = working_state(state, state.flat_params.clone())
+        flat = state.flat_params.clone().requires_grad_()
+        opt = torch.optim.Adam([flat], lr=1e-4, eps=1e-8)
+        return warm(lambda: map_step(work, flat, opt, (x, y), CONV_ALPHA), 3)
+
+    out = {}
+    gen = torch.Generator(device="cuda")
+    for label, M, d_x, block, sample_block in (("LeNet5", 100, 128, None, None),
+                                               ("ResNet1", 50, 32, 4, 25)):
+        state, _, x, y = setups[label]
+        out[f"{label} MAP step"] = map_s(state, x[:256], y[:256])
+        Z, X = x[:M], x[M:M + d_x]
+        reps = 2 if label == "LeNet5" else 1
+        out[f"{label} Z step"] = warm(lambda: kl_value_and_grad_gram(
+            Z, X, state, CONV_ALPHA, full_set_size=60000, example_block=block), reps)
+        with torch.no_grad():
+            build = lambda: ScalableLLAPredictor(  # noqa: E731
+                state, Z, full_set_size=60000, example_block=block, range_clip_min=1.0,
+                sample_block=sample_block)
+            if label == "LeNet5":
+                out[f"{label} factor build"] = warm(build)
+            pred = build()
+            out[f"{label} serving batch"] = warm(lambda: pred.logit_samples(
+                x[:256], CONV_ALPHA, gen.manual_seed(SEED), 200), reps)
+        del pred
+    ip = load_experiment_config(MATFREE["matfree1k"])["optimization"]["ip"]
+    state, _, _, _ = setups["LeNet5"]
+    with contextlib.redirect_stdout(None):
+        images = torch.as_tensor(load_arrays("mnist", True, root=SURROGATE_ONLY)[0][:1152]).cuda()
+    knobs = {k: ip[k] for k in ("st_samples", "slq_samples", "slq_num_matvecs", "cg_tol",
+                                "cg_maxiter", "precond_rank", "precond_power",
+                                "cg_example_block")}
+    out["matfree1k Z step"] = warm(lambda: kl_value_and_grad_matfree(
+        images[:1024], images[1024:], state, 1000.0, gen.manual_seed(SEED), full_set_size=8192,
+        **knobs), 1)
+    torch.cuda.empty_cache()
+    return out
+
+
+def conv_before(path: str) -> int:
+    """``chip_smoke.py --conv-before OUT``: phase 32's measurements without the
+    convolution policy, in a process of their own (cuDNN reads its errata file
+    once a process), written to ``OUT`` as JSON: the named routes (``NAMED_BLOCKS``)
+    with cuDNN unrestricted and with ``deterministic`` alone, and the steps'
+    times unrestricted."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available")
+    from laplace_inducing_points_tpu_torch.models import layers
+    from laplace_inducing_points_tpu_torch.utils import device
+    for module in (layers, device):     # cuDNN as PyTorch sets it: TF32 off, nothing else
+        module.set_conv_policy = lambda: setattr(torch.backends.cudnn, "allow_tf32", False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    setups = {label: _conv_setup(label) for label in CONV_MODELS}
+    shapes = _conv_shapes()
+    named = {"LeNet5": [f"rows, block of {b}" for b in (8, 4, 1)],
+             "ResNet1": [f"rows, block of {b}" for b in (2, 1)] + ["MAP gradient, batch 16"]}
+    result = {}
+    for mode, deterministic in (("unrestricted", False), ("deterministic", True)):
+        torch.backends.cudnn.deterministic = deterministic
+        result[mode] = {}
+        for label in CONV_MODELS:
+            routes = _conv_routes(label, setups[label], shapes[label], named[label])
+            result[mode].update(_measure_routes(label, setups[label], routes, with_off=False))
+    torch.backends.cudnn.deterministic = False
+    result["steps"] = _cost_steps(setups)
+    Path(path).write_text(json.dumps(result))
+    return 0
+
+
+def phase_conv_policy(workdir: Path, smi: str) -> None:
+    """The convolution policy (``utils.device.set_conv_policy``) on every route
+    of the port's convolutions at every size the scale configs give it
+    (:func:`_conv_shapes`), on seeded LeNet5 and ResNet1M and surrogate
+    images: each route's float32 result against the same computation in
+    float64 no further than F64_RATIO times the cuDNN-off path's (PyTorch's own
+    convolutions) on the same inputs; the rows and the MAP gradient bitwise
+    equal in two evaluations; no Winograd or FFT kernel launched. Then the
+    same routes and the steps' times without the policy (a subprocess:
+    cuDNN reads its errata file once a process), and two factor builds'
+    logits on the same noise."""
+    print("== phase 32: the convolution policy (cuDNN deterministic, Winograd and FFT "
+          "engines blocked) on every convolution route", flush=True)
+    from laplace_inducing_points_tpu_torch.inference.lla import ScalableLLAPredictor
+    from laplace_inducing_points_tpu_torch.utils.device import CUDNN_ERRATA
+    print(f"  cuDNN {torch.backends.cudnn.version()}, CUDNN_ERRATA_JSON_FILE="
+          f"{os.environ.get('CUDNN_ERRATA_JSON_FILE')}, deterministic "
+          f"{torch.backends.cudnn.deterministic}, benchmark {torch.backends.cudnn.benchmark}, "
+          f"allow_tf32 {torch.backends.cudnn.allow_tf32}")
+    if os.environ.get("CUDNN_ERRATA_JSON_FILE") != str(CUDNN_ERRATA):
+        raise AssertionError("the convolution policy's errata file is not in force")
+    shapes = _conv_shapes()
+    print(f"  sizes from configs/scale/*.yml (and the named ones): {json.dumps(shapes)}")
+    setups = {label: _conv_setup(label) for label in CONV_MODELS}
+    t0 = time.perf_counter()
+    rows = {}
+    for label in CONV_MODELS:
+        routes = _conv_routes(label, setups[label], shapes[label])
+        gated = {f"{label} {name}" for name, bitwise, _ in routes if bitwise}
+        rows.update({k: dict(v, gated_bitwise=k in gated)
+                     for k, v in _measure_routes(label, setups[label], routes).items()})
+    print(f"  routes measured in {time.perf_counter() - t0:.1f} s")
+    out = workdir / "conv_before.json"
+    env = {k: v for k, v in os.environ.items() if k != "CUDNN_ERRATA_JSON_FILE"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, __file__, "--conv-before", str(out)], env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        print(proc.stdout[-4000:], proc.stderr[-4000:])
+        raise AssertionError(f"the measurement without the policy exited {proc.returncode}")
+    before = json.loads(out.read_text())
+    print(f"  without the policy (a subprocess): {time.perf_counter() - t0:.1f} s")
+    failures = []
+    for key, row in rows.items():
+        ref = {mode: before[mode].get(key) for mode in ("unrestricted", "deterministic")}
+        extra = "".join(f"; {mode} {r['err']:.2e}{' bitwise' if r['bitwise'] else ''}"
+                        f"{' ' + ','.join(r['transforms']) if r['transforms'] else ''}"
+                        for mode, r in ref.items() if r)
+        print(f"  {key}: policy {row['err']:.2e} against float64 (cuDNN off {row['err_off']:.2e}, "
+              f"limit {F64_RATIO}x); two evaluations {'bitwise equal' if row['bitwise'] else 'differ'}"
+              f"{'; Winograd/FFT: ' + ','.join(row['transforms']) if row['transforms'] else ''}"
+              f"{extra}", flush=True)
+        if not row["err"] <= F64_RATIO * row["err_off"]:
+            failures.append(f"{key}: {row['err']:.2e} from float64, cuDNN off {row['err_off']:.2e}")
+        if row["gated_bitwise"] and not row["bitwise"]:
+            failures.append(f"{key}: two evaluations differ")
+        if row["transforms"]:
+            failures.append(f"{key}: launched {row['transforms']}")
+    after = _cost_steps(setups)
+    for name, old in ((n, before["steps"][n]) for n in after):
+        print(f"  {name}: {old:.4f} s without the policy, {after[name]:.4f} s with it "
+              f"({after[name] / old:.2f}x) ({smi})", flush=True)
+    # two factor builds on one MAP and one Z: the same logits on the same noise?
+    state, _, x, _ = setups["LeNet5"]
+    Z = x[:100]
+    with torch.no_grad():
+        preds = [ScalableLLAPredictor(state, Z, full_set_size=60000, range_clip_min=1.0)
+                 for _ in range(2)]
+        logits = [p.logit_samples(x[:256], CONV_ALPHA, torch.Generator(device="cuda")
+                                  .manual_seed(SEED), 200) for p in preds]
+    parts = {"rows": torch.equal(preds[0].R, preds[1].R),
+             "Gram": torch.equal(preds[0].gram, preds[1].gram),
+             "eigh": torch.equal(preds[0].lam, preds[1].lam) and torch.equal(preds[0].V, preds[1].V),
+             "logits": torch.equal(logits[0], logits[1])}
+    print(f"  two factor builds on one MAP and one Z (LeNet5, M = 100): bitwise equal "
+          f"{json.dumps(parts)}; logits on the same noise rel {_rel(logits[1], logits[0]):.2e}",
+          flush=True)
+    if failures:
+        raise AssertionError("the convolution policy failed its gate: " + "; ".join(failures))
+
+
+# --- phase 33: the toy generators ---------------------------------------------
+
+def phase_make_data(workdir: Path, smi: str) -> None:
+    """``python -m laplace_inducing_points_tpu_torch.cli.make_data`` for each
+    toy dataset (the processes run side by side), each file's shape, labels and
+    finiteness; then ``cli.main_toy full_pipeline`` on banana at a seed that no
+    committed fixture holds (map.epochs 250 -> 20, ip.epochs 500 -> 20): the
+    port draws the data, writes it with its own generator key, and trains."""
+    print("== phase 33: the toy generators (cli.make_data for each dataset, then "
+          "main_toy on banana at a seed without a fixture)", flush=True)
+    from laplace_inducing_points_tpu_torch.cli import main_toy
+    from laplace_inducing_points_tpu_torch.data.toy import (GENERATORS, PORT_GENERATOR,
+                                                            load_dataset)
+    out = workdir / "make_data"
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "laplace_inducing_points_tpu_torch.cli.make_data", "--dataset",
+         name, "--n_samples", "512", "--seed", "33", "--out_file", str(out / f"{name}.npz"),
+         *(["--split_in_middle"] if name == "sine" else [])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in GENERATORS}
+    for name, proc in procs.items():
+        text = proc.communicate(timeout=300)[0]
+        if proc.returncode:
+            print(text)
+            raise AssertionError(f"cli.make_data --dataset {name} exited {proc.returncode}")
+        x, y = load_dataset(str(out / f"{name}.npz"))
+        labels = "regression targets" if name == "sine" else f"labels {sorted(set(y.tolist()))}"
+        print(f"  {text.strip().splitlines()[-1]}; finite {bool(np.isfinite(x).all())}, {labels}")
+        if not (x.shape[0] == 512 and np.isfinite(x).all() and np.isfinite(y).all()
+                and (name == "sine" or set(y.tolist()) <= {0, 1})):
+            raise AssertionError(f"cli.make_data --dataset {name} wrote {x.shape}, {y.shape}")
+    print(f"  {len(procs)} make_data processes side by side: {time.perf_counter() - t0:.1f} s")
+    text = Path(TOY["banana"]).read_text()
+    if text.count("  seed: 584848\n") != 1:
+        raise AssertionError(f"{TOY['banana']} has no single data seed 584848")
+    (workdir / "banana_seed33.yml").write_text(text.replace("  seed: 584848\n", "  seed: 33\n"))
+    config = _cut_config(workdir, str(workdir / "banana_seed33.yml"), {250: 20, 500: 20},
+                         "banana_seed33_cut.yml")
+    dirs, common = _toy_dirs(workdir, "banana33")
+    log = workdir / "toy_banana33.log"
+    result = _quiet(main_toy.main, ["full_pipeline", "--dataset", "banana", "--config", config,
+                                    "--fig_dir", dirs["fig"], *common], log)
+    drawn = [line for line in log.read_text().splitlines() if "drawn by the port's generator" in line]
+    with np.load(Path(dirs["data"]) / "banana.npz") as d:
+        generator, seed = str(d["generator"]), int(d["seed"])
+    mp, ind = result["map"], result["inducing"]
+    print(f"  main_toy banana at data seed 33: {drawn[0] if drawn else 'no data line'}; "
+          f"MAP {mp['steps']} steps, loss {mp['loss_head']:.4f} -> {mp['loss_tail']:.4f} "
+          f"(means of the first and last 10), {mp['s_per_step']:.5f} s a step; Z "
+          f"{ind['steps']} steps, loss {ind['loss_first']:.6g} -> {ind['loss_last']:.6g}, max "
+          f"|Z - Z0| {ind['z_moved']:.4g}; figures {result['figures']} ({smi})", flush=True)
+    if not (drawn and generator == PORT_GENERATOR and seed == 33):
+        raise AssertionError("main_toy did not draw banana at seed 33 with the port's generator")
+    if not (math.isfinite(mp["loss_tail"]) and mp["loss_tail"] < mp["loss_head"]
+            and ind["z_moved"] > 0 and math.isfinite(ind["loss_last"])
+            and all(result["figures"].values())):
+        raise AssertionError(f"main_toy on banana at seed 33: {mp}, {ind}, {result['figures']}")
+
+
 def main() -> int:
     smi = phase_environment()
     phase_build()
@@ -3422,6 +3825,8 @@ def main() -> int:
         toy = run_toy(Path(tmp), smi)
         torch.cuda.empty_cache()
         last = run_last_modules(Path(tmp), train, kernel_rows, backward_rows, smi)
+        phase_conv_policy(Path(tmp), smi)
+        phase_make_data(Path(tmp), smi)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
               "replaces": KERNELS[name][1], "launches": launches[name],
@@ -3505,4 +3910,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--conv-before"]:
+        sys.exit(conv_before(sys.argv[2]))
     sys.exit(main())

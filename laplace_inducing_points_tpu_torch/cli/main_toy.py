@@ -2,9 +2,11 @@
 
 Counterpart of ``laplace_inducing_points_tpu/cli/main_toy.py`` with its four
 modes (``train_map``, ``train_inducing``, ``visualize``, ``full_pipeline``) and
-every flag of the JAX driver, plus ``--device``. The toy data is read through
-``data.toy`` (committed npz files the JAX package wrote; an explicit
-``--dataset path.npz`` is read as it is). The MAP weights start from a seeded
+every flag of the JAX CLI, plus ``--device``. The toy data comes through
+``data.toy``: a file in ``--data_dir`` or a committed fixture holding the
+config's generation parameters, else drawn by the port's generator and
+written into ``--data_dir``; an explicit ``--dataset path.npz`` is read as it
+is. The MAP weights start from a seeded
 numpy lecun-normal init in the JAX layout (``model.seed``; the Flax init
 stream cannot be reproduced); ``--map_restarts`` k > 1 trains k of them,
 candidate i ≥ 1 from seed ``model.seed + 104729·i`` and a loader seeded

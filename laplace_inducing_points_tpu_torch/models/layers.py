@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from laplace_inducing_points_tpu_torch.utils.device import set_conv_policy
+
 
 class Dense(nn.Module):
     """Flax ``nn.Dense``: ``x @ kernel + bias`` over the last axis."""
@@ -46,7 +48,9 @@ def same_padding(size: int, window: int, stride: int) -> tuple[int, int]:
 class Conv(nn.Module):
     """Flax ``nn.Conv`` on NCHW activations with an HWIO kernel: ``padding``
     ``"VALID"`` or ``"SAME"`` (XLA's, :func:`same_padding`), ``strides`` and
-    an optional bias."""
+    an optional bias. Every call applies the convolution policy
+    (``utils.device.set_conv_policy``: cuDNN deterministic, its Winograd and
+    FFT engines blocked)."""
 
     def __init__(self, in_channels: int, features: int, window: tuple[int, int],
                  strides: tuple[int, int] = (1, 1), padding: str = "VALID",
@@ -70,6 +74,7 @@ class Conv(nn.Module):
                 pad = (h_lo, w_lo)
             else:
                 x = F.pad(x, (w_lo, w_hi, h_lo, h_hi))
+        set_conv_policy()
         return F.conv2d(x, self.kernel.permute(3, 2, 0, 1), self.bias, self.strides, pad)
 
 

@@ -176,6 +176,19 @@ def _scatter_inducing(ax, Z):
                label="Inducing points")
 
 
+def draw_dataset(x, y, regression: bool, title: str, save_path: str) -> str:
+    """A scatter of a toy dataset: ``y`` against ``x`` for a regression,
+    the two classes in the plane otherwise."""
+    import matplotlib.pyplot as plt
+    fig, ax = plt.subplots(figsize=(6, 4))
+    if regression:
+        ax.scatter(np.asarray(x).ravel(), np.asarray(y).ravel(), s=12, alpha=0.8)
+    else:
+        _scatter_classes(ax, x, y)
+    ax.set_title(title)
+    return _save(fig, save_path)
+
+
 def draw_map_2d(res: dict, xtrain, ytrain, save_path: str) -> str:
     import matplotlib.pyplot as plt
     fig, ax = plt.subplots(figsize=(8, 5))

@@ -103,7 +103,8 @@ def test_evaluate_profile_traces_the_last_repetition(tmp_path, capsys, iters):
     assert "aten::randn" in names                  # the repetition's draws are
 
 
-@pytest.mark.parametrize("name", ["train_scale", "evaluate", "main_toy", "import_data"])
+@pytest.mark.parametrize("name", ["train_scale", "evaluate", "main_toy", "import_data",
+                                  "make_data"])
 def test_port_parsers_accept_every_jax_option(name):
     """Each port CLI takes every option string of its JAX twin (and
     ``--device``), with the same positional modes."""

@@ -1,8 +1,9 @@
 """Twin tests of the port's toy data and the regressor's MAP.
 
 The JAX package writes the toy datasets with ``jax.random``; the port reads
-the committed files (``data/fixtures/toy``). Tolerances, each with its
-reason:
+the committed files (``data/fixtures/toy``) at their parameters and draws
+its own elsewhere (``tests/test_torch_make_data.py``). Tolerances, each with
+its reason:
 
 * the fixtures against ``ensure_toy_npz``'s arrays and the split: bitwise
   (the same bytes);
@@ -73,11 +74,21 @@ def test_fixture_reader_matches_ensure_toy_npz(fixture, tmp_path):
 
 
 def test_stale_or_missing_fixture_raises_naming_the_jax_command(tmp_path):
+    """No longer a refusal: where neither ``data_dir`` nor the fixtures hold
+    the parameters asked for (another n, or other generator keywords), the
+    port draws the dataset with its own generator and writes it into
+    ``data_dir``; a fresh file there still wins over the fixture."""
     args = _gen_args("classifier_banana.yml", {})
-    with pytest.raises(FileNotFoundError, match="laplace_inducing_points_tpu.cli.make_data"):
-        ttoy.ensure_toy_npz("banana", data_dir=str(tmp_path), **{**args, "n": 499})
-    with pytest.raises(FileNotFoundError, match="gen_kwargs"):
-        ttoy.ensure_toy_npz("banana", data_dir=str(tmp_path), **args, shuffle=True)
+    path = ttoy.ensure_toy_npz("banana", data_dir=str(tmp_path), **{**args, "n": 499})
+    assert path == str(tmp_path / "banana.npz")
+    x, y = ttoy.load_dataset(path)
+    ref = ttoy.create_dataset("banana", 499, args["seed"], noise=args["noise"])
+    np.testing.assert_array_equal(x, ref[0])
+    np.testing.assert_array_equal(y, ref[1])
+    path = ttoy.ensure_toy_npz("spiral", data_dir=str(tmp_path), **args, shuffle=True)
+    with np.load(path) as d:
+        assert str(d["gen_kwargs"]) == "[('shuffle', True)]"
+        assert float(d["gen_version"]) == ttoy.PORT_GENERATOR_VERSION
     # a fresh file in data_dir wins over the fixture
     jpath = jtoy.ensure_toy_npz("xor", data_dir=str(tmp_path), n=40, noise=0.1, seed=3)
     assert ttoy.ensure_toy_npz("xor", data_dir=str(tmp_path), n=40, noise=0.1, seed=3) == jpath
