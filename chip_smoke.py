@@ -164,15 +164,17 @@ exits non-zero without printing a result:
     where there are more): ``sharded_gram`` against B1's Gram (relative 1e-6),
     ``sharded_dense_wt`` and ``sharded_ggn_matmat`` against their unsharded
     versions, the data-parallel MAP step against one device's on LeNet5 and
-    on ResNet1M at batch 16 (BatchNorm; where float32 leaves a gradient
-    less accurate than 1e-5, each against float64), ``ScalableLLAPredictor(
+    on ResNet1M at batch 16 (BatchNorm; where the two float32 gradients
+    are further apart than 1e-5, each against float64 on its own ReLU
+    masks), ``ScalableLLAPredictor(
     mesh=)`` against the plain draws on its factor and noise (weight, S = 200;
     matfree, S = 32; logits relative 1e-5, or for the weight path no further
     from its float64 contractions than 2x the plain draws, for the matfree
     path within 10x the CG residual float32 reaches), with a second
     factor build's distance printed, and ``evaluate --mesh`` and
     ``train_scale`` without ``--no-mesh`` on one GPU (no mesh there, as in the
-    reference);
+    reference); the data-parallel MAP gradients against float64 on their
+    own ReLU masks;
 32. the convolution policy (``utils.device.set_conv_policy``): every route
     of the port's convolutions (rows, row pullback, the matfree factor, the
     MAP gradient, the serving push-forward, the cov Jacobians) at every size
@@ -181,17 +183,34 @@ exits non-zero without printing a result:
     bitwise equal in two evaluations, no Winograd or FFT kernel; the same
     routes and the steps' times without the policy (a subprocess,
     ``chip_smoke.py --conv-before OUT``); two factor builds' logits on the
-    same noise;
+    same noise. Every float64 reference replays the ReLU masks of the float32
+    forward it is held against (``utils.relu_masks``). Then the routes at
+    small sizes (STEP1) on the first images, against float64 computed on the
+    CPU by a process that ran beside phases 3-31 at nice 19
+    (``chip_smoke.py --cpu-reference OUT``): the card's float64 on the CPU's
+    masks within REF_TOL of the CPU's, and each ResNet1M route's float32 with
+    cuDNN off within F64_RATIO times the CPU float32 port's error (under the
+    policy within F64_RATIO times cuDNN off's); the policy's probe, its error and
+    cost, and a process that ran cuDNN before importing the port
+    (``chip_smoke.py --conv-first``) must fail on it;
 33. the toy generators: ``cli.make_data`` for each dataset, then
-    ``main_toy full_pipeline`` on banana at a data seed no fixture holds.
+    ``main_toy full_pipeline`` on banana at a data seed no fixture holds;
+34. the public API, imported only through the subpackages' exports: the
+    parameter counts, ``train_inducing_points`` (3 gram steps on phase 7's
+    MAP, B1, B2 and their backward passes launched, the ``mnist`` image
+    callback), ``is_pd``, ``nystrom_preconditioner`` into ``cg_batched``,
+    ``viz.exp_plots`` on an evaluation record; the step's kernels timed at
+    its shapes.
 
 The line before the last is the card's ``nvidia-smi`` line; the one before
 it is the per-kernel JSON; the last line is ``{"ok": true, "device": ...}``.
+The line before those three gives the whole run's seconds.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import math
 import os
@@ -200,6 +219,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -1642,7 +1662,7 @@ CONTRACT_REL, CONTRACT_COS = 0.05, 0.998
 DESCENT_STEPS = 20                  # phase 19(b)
 DESCENT_IMAGES = 2560
 DESCENT_DRAWS = 8
-# phase 19(b)'s limit on |Z_free - Z_mat| / |Z_mat - Z0|: measured 0.17-0.21;
+# phase 19(b)'s limit on |Z_free - Z_mat| / |Z_mat - Z0|: measured 0.13-0.21;
 # a trainer that leaves Z where it is gives 1
 TRAJECTORY_APART = 0.5
 MATFREE_KERNELS = ("ggn_sweep", "ggn_sweep_backward")    # the matfree1k CLI path's
@@ -3155,45 +3175,62 @@ def phase_gram_chunked(workdir: Path, train: dict, kernel_rows: dict, backward_r
 
 def _map_step_pair(state, batch, mesh, lr: float = 1e-3, alpha: float = 0.005):
     """One MAP step on ``batch`` without and with ``mesh`` from the same
-    weights: ``[(loss, gradient, flat after, batch_stats after), ...]``."""
+    weights: ``[(loss, gradient, flat after, batch_stats after, the forward's
+    ReLU masks over the whole batch), ...]``."""
     from laplace_inducing_points_tpu_torch.training.map import map_step, working_state
+    from laplace_inducing_points_tpu_torch.utils.relu_masks import recorded_relu_masks
     outs = []
     for m in (None, mesh):
         work = working_state(state, state.flat_params.clone())
         flat = state.flat_params.clone().requires_grad_()
-        loss = map_step(work, flat, torch.optim.Adam([flat], lr=lr, eps=1e-8), batch, alpha,
-                        mesh=m)
+        record = {}
+        with recorded_relu_masks(record):
+            loss = map_step(work, flat, torch.optim.Adam([flat], lr=lr, eps=1e-8), batch,
+                            alpha, mesh=m)
         torch.cuda.synchronize()
-        outs.append((float(loss), flat.grad.detach().clone(), flat.detach(), work.batch_stats))
+        # the shards' masks, in rank order, are the whole batch's
+        parts = ([record[threading.current_thread().name]] if m is None else
+                 [record[f"shard {r}"] for r in range(len(record))])
+        masks = [torch.cat([p[i].to(flat.device) for p in parts]) for i in range(len(parts[0]))]
+        outs.append((float(loss), flat.grad.detach().clone(), flat.detach(), work.batch_stats,
+                     masks))
     return outs
 
 
-def _map_gradient64(state, batch, alpha: float = 0.005) -> torch.Tensor:
+def _map_gradient64(state, batch, alpha: float = 0.005, masks=None) -> torch.Tensor:
     """The MAP loss's gradient on one device in float64 (train-mode
-    BatchNorm)."""
+    BatchNorm); with ``masks`` on those ReLU masks (``utils.relu_masks``)."""
     from laplace_inducing_points_tpu_torch.training.map import map_loss
+    from laplace_inducing_points_tpu_torch.utils.relu_masks import replayed_relu_masks
     s64 = _state64(state)
     flat = s64.flat_params.clone().requires_grad_()
     x, y = (torch.as_tensor(t, device="cuda") for t in batch)
-    loss, _ = map_loss(s64, flat, x.double(), y, alpha)
+    with replayed_relu_masks(masks) if masks is not None else contextlib.nullcontext():
+        loss, _ = map_loss(s64, flat, x.double(), y, alpha)
     return torch.autograd.grad(loss, flat)[0]
 
 
 def _check_map_steps(label: str, state, batch, mesh) -> None:
     """The data-parallel step's loss and BatchNorm statistics against one
     device's (MESH_OP_TOL); its gradient within MESH_OP_TOL of one device's or,
-    where float32 leaves the gradient itself less accurate than that (a
-    BatchNorm net at its random init), no further from float64 than F64_RATIO
-    times one device's is."""
-    (l1, g1, f1, s1), (l2, g2, f2, s2) = _map_step_pair(state, batch, mesh)
-    g64 = _map_gradient64(state, batch)
+    where float32 leaves the two further apart than that (their forwards
+    round a ReLU input near 0 to different sides: a BatchNorm net's moments
+    are summed in another order on the mesh), no further from float64 on its
+    own ReLU masks than F64_RATIO times one device's is from float64 on its
+    masks."""
+    (l1, g1, f1, s1, m1), (l2, g2, f2, s2, m2) = _map_step_pair(state, batch, mesh)
+    flips = sum(int((a != b).sum()) for a, b in zip(m1, m2))
+    plain = _map_gradient64(state, batch)
     rel_l, rel_g, rel_f = abs(l2 - l1) / abs(l1), _rel(g2, g1), _rel(f2, f1)
-    err1, err2 = _rel(g1, g64), _rel(g2, g64)
+    err1, err2 = _rel(g1, _map_gradient64(state, batch, masks=m1)), _rel(
+        g2, _map_gradient64(state, batch, masks=m2))
     rel_s = max((_rel(s2[k], s1[k]) for k in s1), default=0.0)
     print(f"  data-parallel MAP step, {label}: loss {l1:.7f} on one device, {l2:.7f} on the "
-          f"mesh (rel {rel_l:.2e}); gradient rel L2 {rel_g:.2e} (against float64: one device "
-          f"{err1:.2e}, the mesh {err2:.2e}); weights after the Adam step rel {rel_f:.2e}; "
-          f"BatchNorm statistics rel {rel_s:.2e} (worst of {len(s1)} buffers)", flush=True)
+          f"mesh (rel {rel_l:.2e}); gradient rel L2 {rel_g:.2e} ({flips} ReLU mask entries "
+          f"differ; against float64 on each one's masks: one device {err1:.2e}, the mesh "
+          f"{err2:.2e}; with plain ReLUs {_rel(g1, plain):.2e}, {_rel(g2, plain):.2e}); weights "
+          f"after the Adam step rel {rel_f:.2e}; BatchNorm statistics rel {rel_s:.2e} (worst "
+          f"of {len(s1)} buffers)", flush=True)
     if not (rel_l <= MESH_OP_TOL and rel_s <= MESH_OP_TOL
             and (rel_g <= MESH_OP_TOL or err2 <= F64_RATIO * err1)):
         raise AssertionError(f"data-parallel MAP step ({label}) differs from one device")
@@ -3456,8 +3493,8 @@ def _conv_shapes() -> dict:
             for m, s in shapes.items()}
 
 
-def _conv_setup(label: str):
-    """Seeded weights of ``label`` on the card and its surrogate inputs (the
+def _conv_setup(label: str, device: str = "cuda"):
+    """Seeded weights of ``label`` on ``device`` and its surrogate inputs (the
     same in every process): ``(state, float64 state, images, labels)``."""
     from laplace_inducing_points_tpu_torch.core.params import (FlatSpec, lecun_normal_params,
                                                                params_from_jax)
@@ -3466,11 +3503,11 @@ def _conv_setup(label: str):
     from laplace_inducing_points_tpu_torch.models.state import ModelState
     model = LeNet5() if label == "LeNet5" else ResNet1M(10)
     flat, _ = params_from_jax(lecun_normal_params(FlatSpec.from_module(model), SEED))
-    state = ModelState(model.cuda(), flat.cuda(), "classifier")
+    state = ModelState(model.to(device), flat.to(device), "classifier")
     with contextlib.redirect_stdout(None):
         x, y = load_arrays(CONV_MODELS[label], train=True, root=SURROGATE_ONLY)
-    return (state, _state64(state), torch.as_tensor(x[:1280]).cuda(),
-            torch.as_tensor(y[:1280]).long().cuda())
+    return (state, _state64(state), torch.as_tensor(x[:1280]).to(device),
+            torch.as_tensor(y[:1280]).long().to(device))
 
 
 def _map_grad(state, x, y):
@@ -3480,21 +3517,30 @@ def _map_grad(state, x, y):
     return torch.autograd.grad(loss, flat)[0]
 
 
-def _conv_routes(label: str, setup, shapes: dict, only=None) -> list:
+def _conv_routes(label: str, setup, shapes: dict, only=None, gen=None, batch=None) -> list:
     """``(name, gated bitwise, fn)``: each route of the port's convolutions at
     each of ``shapes``; ``fn(state, cast)`` computes it on a state of either
-    precision with its inputs cast to that precision."""
+    precision with its inputs cast to that precision. The cotangents and
+    draws come from ``gen`` (a CUDA generator at SEED + 32 by default; one on
+    the CPU gives every process the same), the MAP gradient's batches from
+    ``batch`` (default: the images and labels of ``setup``)."""
     from torch.func import vmap
 
     from laplace_inducing_points_tpu_torch.core import operators as ops
     state, _, x, y = setup
+    xb, yb = batch if batch is not None else (x, y)
     D, K = state.spec.num_params, 10
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    gen = gen if gen is not None else torch.Generator(device="cuda").manual_seed(SEED + 32)
+
+    def draw(*shape):
+        return torch.randn(*shape, device=gen.device, generator=gen).to(x.device)
+
     rows_max = max(b for b in shapes["rows"] if b is not None)
-    ct = torch.randn(rows_max * K, D, device="cuda", generator=gen)
-    draws = torch.randn(max(shapes["serving"]), D, device="cuda", generator=gen) * 0.05
-    probes = torch.randn(8, max(shapes["matfree"], default=0) * K, device="cuda", generator=gen)
-    batch_b = 256 if label == "LeNet5" else 32        # test batch of the pushed-forward
+    ct = draw(rows_max * K, D)
+    draws = draw(max(shapes["serving"]), D) * 0.05
+    probes = draw(8, max(shapes["matfree"], default=0) * K)
+    # test batch of the pushed-forward
+    batch_b = min(256 if label == "LeNet5" else 32, len(x))
     routes = []
     for b in shapes["rows"]:
         routes.append((f"rows, block of {b}", True,
@@ -3507,7 +3553,8 @@ def _conv_routes(label: str, setup, shapes: dict, only=None) -> list:
                        .gram_matmat(c(probes[:, :b * K]))))
     for n in shapes["map"]:
         routes.append((f"MAP gradient, batch {n}", True,
-                       lambda st, c, n=n: _map_grad(st, c(x[:n]), y[:n])))
+                       lambda st, c, n=n: _map_grad(st, c(xb[:n]),
+                                                     yb[:n].to(st.flat_params.device))))
     for s in shapes["serving"]:
         routes.append((f"serving push-forward, {s} draws on {batch_b} images", False,
                        lambda st, c, s=s: vmap(ops.linearize_model(st, c(x[:batch_b])).jvp)(
@@ -3520,6 +3567,217 @@ def _conv_routes(label: str, setup, shapes: dict, only=None) -> list:
     return [r for r in routes if only is None or r[0] in only]
 
 
+def _cudnn_off():
+    """PyTorch's own convolutions (cuDNN off), TF32 off."""
+    return torch.backends.cudnn.flags(enabled=False, benchmark=False, deterministic=True,
+                                      allow_tf32=False)
+
+
+# Phase 32's reference check, at small sizes: rows and pullback in blocks of 1,
+# 2, 4 and 10, the MAP gradient at batch 16 (train mode), 25 draws pushed
+# forward, the cov Jacobians at one jac_block; on the first STEP1_IMAGES
+# surrogate images and the MAP on the first 16. Each float32 result is held
+# against float64 on the float32 forward's own ReLU masks
+# (``utils.relu_masks``): at a kink the Jacobian jumps, and one pre-activation
+# within float32 round-off of 0 (ResNet1M has ~3 x 10^5 an image; such an
+# input flips in 5 of its first 64 images and in every train-mode batch of
+# 16) puts the rows ~1e-3 from float64 with plain ReLUs whatever the
+# arithmetic. The cov Jacobians are the rows' (the same ``jacobian_fn`` on
+# the same 10 images in one block), so "rows, block of 10" holds their
+# convolutions at the CPU float32 level; the cov route's own limit is set by
+# the CPU's float32 contractions over D (printed beside it with them in
+# float64).
+STEP1 = {"rows": [1, 2, 4, 10], "map": [16], "serving": [25], "cov": [32], "matfree": []}
+STEP1_IMAGES = 10
+REF_TOL = 1e-12          # the card's float64 routes against the CPU's, on the CPU's masks
+
+
+def _grad_mode(name: str):
+    """Autograd for the routes that differentiate, ``no_grad`` for the rest."""
+    return (contextlib.nullcontext() if "gradient" in name or "pullback" in name
+            else torch.no_grad())
+
+
+def _reference(state, s64, fn, masks_of=None) -> torch.Tensor:
+    """``fn`` in float64 (``s64``) on the ReLU masks of the float32 forward of
+    ``masks_of`` (default ``state``; a state on the CPU gives the CPU's)."""
+    from laplace_inducing_points_tpu_torch.utils.relu_masks import replay_relu_masks
+    with replay_relu_masks(masks_of or state, s64):
+        return fn(s64, lambda t: t.double()).detach()
+
+
+def _cpu_state(state):
+    from laplace_inducing_points_tpu_torch.models.state import ModelState
+    return ModelState(copy.deepcopy(state.model).cpu(), state.flat_params.cpu(),
+                      state.model_kind, {k: v.cpu() for k, v in state.batch_stats.items()})
+
+
+def _step1_routes(label: str, setup, only=None) -> list:
+    """Phase 32's STEP1 routes on the first STEP1_IMAGES images (the MAP
+    gradient on the first 16), their draws from a CPU generator."""
+    state, s64, x, y = setup
+    return _conv_routes(label, (state, s64, x[:STEP1_IMAGES], y[:STEP1_IMAGES]), STEP1, only,
+                        gen=torch.Generator().manual_seed(SEED + 33), batch=(x[:16], y[:16]))
+
+
+def cpu_reference(path: str) -> int:
+    """``chip_smoke.py --cpu-reference OUT``: the STEP1 routes on the CPU for
+    both conv models, each in float64 on the CPU float32 port's ReLU masks
+    and the port's float32 distance from it (the cov route's also with its
+    contractions, ``pdot``, in float64), written to OUT (``torch.save``).
+    Phase 32 holds the card against them. It runs beside the earlier phases
+    at the lowest priority (nice 19), on the CPU time they leave idle."""
+    os.nice(19)
+    from laplace_inducing_points_tpu_torch.core import operators as ops
+    out = {}
+    for label in CONV_MODELS:
+        setup = _conv_setup(label, device="cpu")
+        state, s64, _, _ = setup
+        for name, _, fn in _step1_routes(label, setup):
+            t0 = time.perf_counter()
+            with _grad_mode(name):
+                ref = _reference(state, s64, fn)
+                row = {"cpu64": ref, "cpu32_err": _rel(fn(state, lambda t: t).detach(), ref)}
+                if name.startswith("cov"):
+                    pdot = ops.pdot
+                    ops.pdot = lambda a, b: (a.double() @ b.double()).to(a.dtype)
+                    try:
+                        row["cpu32_err_f64_pdot"] = _rel(fn(state, lambda t: t).detach(), ref)
+                    finally:
+                        ops.pdot = pdot
+            out[f"{label} {name}"] = dict(row, seconds=time.perf_counter() - t0)
+    torch.save(out, path)
+    return 0
+
+
+def _measure_step1(setups: dict, cpu: dict) -> dict:
+    """The STEP1 routes on the card: float32 under the policy and with cuDNN
+    off, each against float64 on its own ReLU masks under the same settings
+    (with cuDNN off also against float64 with plain ReLUs, which shows the
+    kinks); and float64 on the CPU float32 port's masks, cuDNN on and off,
+    against the CPU's float64 on the same masks (``cpu``, from
+    :func:`cpu_reference`), beside the CPU float32 port's distance."""
+    out = {}
+    for label, setup in setups.items():
+        state, s64, _, _ = setup
+        on_cpu = _cpu_state(state)
+        for name, _, fn in _step1_routes(label, setup):
+            key = f"{label} {name}"
+            row = {k: v for k, v in cpu[key].items() if k != "cpu64"}
+            with _grad_mode(name):
+                for way, flags in (("policy", contextlib.nullcontext), ("off", _cudnn_off)):
+                    with flags():
+                        f32 = fn(state, lambda t: t).detach()
+                        row[f"card32_{way}"] = _rel(f32, _reference(state, s64, fn))
+                        row[f"card64_{way}"] = _rel(_reference(state, s64, fn, on_cpu).cpu(),
+                                                    cpu[key]["cpu64"])
+                        if way == "off":
+                            row["card32_plain"] = _rel(f32, fn(s64, lambda t: t.double()).detach())
+            out[key] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def _wait_cpu_reference(cpu_ref) -> dict:
+    proc, path = cpu_ref
+    t0 = time.perf_counter()
+    out = proc.communicate(timeout=900)[0]
+    if proc.returncode:
+        print(out[-4000:])
+        raise AssertionError(f"the CPU reference exited {proc.returncode}")
+    print(f"  the CPU reference (a process at nice 19 beside phases 3-31; waited "
+          f"{time.perf_counter() - t0:.1f} s for it)", flush=True)
+    return torch.load(path)
+
+
+def _check_step1(setups: dict, cpu_ref) -> tuple[list, dict]:
+    """Phase 32's STEP1 table and its gates (see :func:`phase_conv_policy`):
+    the failures and the table."""
+    rows = _measure_step1(setups, _wait_cpu_reference(cpu_ref))
+    print(f"  STEP1 routes on the first {STEP1_IMAGES} images (the MAP gradient on the first 16, "
+          f"train mode), each float32 result against float64 on its own ReLU masks; ResNet1M's "
+          f"with cuDNN off gated at {F64_RATIO}x the CPU float32 port's, under the policy at "
+          f"{F64_RATIO}x cuDNN off's:", flush=True)
+    failures = []
+    for key, row in rows.items():
+        limit = F64_RATIO * row["cpu32_err"]
+        pdot = row.get("cpu32_err_f64_pdot")
+        print(f"  {key}: card float32 {row['card32_policy']:.2e} under the policy, "
+              f"{row['card32_off']:.2e} with cuDNN off ({row['card32_plain']:.2e} against plain "
+              f"ReLUs); CPU float32 {row['cpu32_err']:.2e}"
+              + (f" ({pdot:.2e} with its contractions in float64)" if pdot is not None else "")
+              + f"; card float64 {row['card64_policy']:.1e} (cuDNN off {row['card64_off']:.1e}) "
+              f"from the CPU's on the CPU's masks; the CPU took {row['seconds']:.1f} s"
+              + (f"; limit {limit:.2e}" if key.startswith("ResNet1") else ""), flush=True)
+        if not max(row["card64_policy"], row["card64_off"]) <= REF_TOL:
+            failures.append(f"{key}: the card's float64 {row['card64_policy']:.1e} "
+                            f"(cuDNN off {row['card64_off']:.1e}) from the CPU's")
+        policy, off = row["card32_policy"], row["card32_off"]
+        if key.startswith("ResNet1") and not (off <= limit and policy <= F64_RATIO * off):
+            failures.append(f"{key}: {policy:.2e} (cuDNN off {off:.2e}) from float64, the CPU "
+                            f"float32 port {row['cpu32_err']:.2e}")
+    return failures, rows
+
+
+def _unrestricted_rows(before: dict, rows: dict) -> None:
+    """Without the policy (``before``), ResNet1M's rows in blocks of 1 and 2
+    (STEP1's images) against the absolute gate's limit (``rows``, STEP1's
+    table)."""
+    for mode in ("unrestricted", "deterministic"):
+        for b in (1, 2):
+            err = before[mode][f"ResNet1 rows, block of {b}"]["err"]
+            limit = F64_RATIO * rows[f"ResNet1 rows, block of {b}"]["cpu32_err"]
+            print(f"  without the policy ({mode}): ResNet1M rows, block of {b}: {err:.2e} from "
+                  f"float64 on its masks; the gate's limit {limit:.2e} "
+                  f"{'catches it' if err > limit else 'passes it'}", flush=True)
+
+
+def _check_probe(first, smi: str) -> list:
+    """The policy's probe: its error and its cost in this process (the first
+    call, at the process's first convolution, and warm), and ``first``, the
+    ``--conv-first`` process (a cuDNN convolution before the port), which must
+    exit on the probe's error; the failures."""
+    from laplace_inducing_points_tpu_torch.utils import device as policy
+    stdout, stderr = first.communicate(timeout=300)
+    said = [line for line in stderr.splitlines() if "convolution policy is not in force" in line]
+    print(f"  a process that ran cuDNN before the port (run beside the routes above): exit "
+          f"{first.returncode} ({''.join(stdout.strip().splitlines()[:1])}); "
+          f"{said[-1] if said else stdout.strip()}", flush=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    err, first_s = policy.PROBED[str(dev)]
+    warm = statistics.median(_host_s(lambda: policy.probe_error(dev))[1] for _ in range(5))
+    print(f"  the policy's probe: {err:.2e} from float64 (limit {policy.PROBE_LIMIT:g}); its first "
+          f"call {first_s * 1e3:.1f} ms (the process's first convolution), warm "
+          f"{warm * 1e3:.2f} ms ({smi})", flush=True)
+    if first.returncode == 0 or not said:
+        print(stdout[-2000:], stderr[-2000:])
+        return ["a process that ran cuDNN before the port did not fail on the probe"]
+    return []
+
+
+def conv_first() -> int:
+    """``chip_smoke.py --conv-first``: a cuDNN convolution before the port is
+    imported (no errata file named), then a LeNet5 row: the policy's probe
+    must raise, so this exits non-zero. Prints the seconds of that first
+    convolution (cuDNN loads) and of the probe after it."""
+    import torch.nn.functional as F
+    t0 = time.perf_counter()
+    F.conv2d(torch.rand(2, 3, 8, 8, device="cuda"), torch.rand(4, 3, 3, 3, device="cuda"))
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    setup = _conv_setup("LeNet5")
+    from laplace_inducing_points_tpu_torch.core import operators as ops
+    t0 = time.perf_counter()
+    try:
+        with torch.no_grad():
+            ops.dense_wt(setup[0], setup[2][:1])
+    finally:
+        print(f"the process's first convolution {first:.2f} s; the probe after it "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+    print("no error: the probe passed a process that ran cuDNN first")
+    return 0
+
+
 def _transform_names(fn) -> list:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
@@ -3530,22 +3788,23 @@ def _transform_names(fn) -> list:
 
 
 def _measure_routes(label: str, setup, routes: list, with_off: bool = True) -> dict:
-    """Each route's float64 error, whether two evaluations are bitwise equal,
-    and the Winograd and FFT kernels it launched, under the cuDNN settings in
-    force; with ``with_off`` also the error of the cuDNN-off path (PyTorch's
-    own convolutions) on the same inputs."""
+    """Each route's error from float64 on its own ReLU masks, whether two
+    evaluations are bitwise equal, and the Winograd and FFT kernels it
+    launched, under the cuDNN settings in force; with ``with_off`` also the
+    error of the cuDNN-off path (PyTorch's own convolutions) on the same
+    inputs, from float64 on the cuDNN-off forward's masks."""
     state, s64, _, _ = setup
     out = {}
     for name, _, fn in routes:
-        with torch.no_grad() if "gradient" not in name and "pullback" not in name \
-                else contextlib.nullcontext():
-            ref = fn(s64, lambda t: t.double()).detach()
+        with _grad_mode(name):
+            ref = _reference(state, s64, fn)
             a, b = (fn(state, lambda t: t).detach() for _ in range(2))
             row = {"err": _rel(a, ref), "bitwise": bool(torch.equal(a, b)),
                    "transforms": _transform_names(lambda: fn(state, lambda t: t))}
             if with_off:
-                with torch.backends.cudnn.flags(enabled=False):
-                    row["err_off"] = _rel(fn(state, lambda t: t).detach(), ref)
+                with _cudnn_off():
+                    row["err_off"] = _rel(fn(state, lambda t: t).detach(),
+                                          _reference(state, s64, fn))
         out[f"{label} {name}"] = row
         del ref, a, b
     torch.cuda.empty_cache()
@@ -3611,18 +3870,20 @@ def _cost_steps(setups: dict) -> dict:
     return out
 
 
-def conv_before(path: str) -> int:
-    """``chip_smoke.py --conv-before OUT``: phase 32's measurements without the
-    convolution policy, in a process of their own (cuDNN reads its errata file
-    once a process), written to ``OUT`` as JSON: the named routes (``NAMED_BLOCKS``)
-    with cuDNN unrestricted and with ``deterministic`` alone, and the steps'
-    times unrestricted."""
+def conv_before(path: str, go: str) -> int:
+    """``chip_smoke.py --conv-before OUT GO``: phase 32's measurements without
+    the convolution policy, in a process of their own (cuDNN reads its errata
+    file once a process), written to ``OUT`` as JSON: the named routes
+    (``NAMED_BLOCKS``; ResNet1M's rows in blocks of 1 and 2 are STEP1's), with
+    cuDNN unrestricted and with ``deterministic`` alone, and then, once the
+    file GO exists (phase 32 leaves the card to it), the steps' times
+    unrestricted."""
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
     from laplace_inducing_points_tpu_torch.models import layers
     from laplace_inducing_points_tpu_torch.utils import device
     for module in (layers, device):     # cuDNN as PyTorch sets it: TF32 off, nothing else
-        module.set_conv_policy = lambda: setattr(torch.backends.cudnn, "allow_tf32", False)
+        module.set_conv_policy = lambda *args: setattr(torch.backends.cudnn, "allow_tf32", False)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     setups = {label: _conv_setup(label) for label in CONV_MODELS}
@@ -3637,22 +3898,33 @@ def conv_before(path: str) -> int:
             routes = _conv_routes(label, setups[label], shapes[label], named[label])
             result[mode].update(_measure_routes(label, setups[label], routes, with_off=False))
     torch.backends.cudnn.deterministic = False
+    deadline = time.perf_counter() + 900
+    while not Path(go).exists():
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"{go} did not appear")
+        time.sleep(0.05)
     result["steps"] = _cost_steps(setups)
     Path(path).write_text(json.dumps(result))
     return 0
 
 
-def phase_conv_policy(workdir: Path, smi: str) -> None:
+def phase_conv_policy(workdir: Path, smi: str, cpu_ref) -> None:
     """The convolution policy (``utils.device.set_conv_policy``) on every route
     of the port's convolutions at every size the scale configs give it
     (:func:`_conv_shapes`), on seeded LeNet5 and ResNet1M and surrogate
     images: each route's float32 result against the same computation in
-    float64 no further than F64_RATIO times the cuDNN-off path's (PyTorch's own
-    convolutions) on the same inputs; the rows and the MAP gradient bitwise
+    float64 on its own ReLU masks (``utils.relu_masks``) no further than
+    F64_RATIO times the cuDNN-off path's (PyTorch's own convolutions) on the
+    same inputs; the rows and the MAP gradient bitwise
     equal in two evaluations; no Winograd or FFT kernel launched. Then the
     same routes and the steps' times without the policy (a subprocess:
     cuDNN reads its errata file once a process), and two factor builds'
-    logits on the same noise."""
+    logits on the same noise. The STEP1 routes against the CPU's float64
+    (``cpu_ref``: the process of :func:`cpu_reference` and its output): the
+    card's float64 on the CPU's masks within REF_TOL of it, and each ResNet1M
+    route's cuDNN-off float32 within F64_RATIO times the CPU float32 port's
+    distance (each from float64 on its own masks). The policy's probe: its error and cost,
+    and a process that ran cuDNN before the port must fail on it."""
     print("== phase 32: the convolution policy (cuDNN deterministic, Winograd and FFT "
           "engines blocked) on every convolution route", flush=True)
     from laplace_inducing_points_tpu_torch.inference.lla import ScalableLLAPredictor
@@ -3666,25 +3938,37 @@ def phase_conv_policy(workdir: Path, smi: str) -> None:
     shapes = _conv_shapes()
     print(f"  sizes from configs/scale/*.yml (and the named ones): {json.dumps(shapes)}")
     setups = {label: _conv_setup(label) for label in CONV_MODELS}
-    t0 = time.perf_counter()
-    rows = {}
-    for label in CONV_MODELS:
-        routes = _conv_routes(label, setups[label], shapes[label])
-        gated = {f"{label} {name}" for name, bitwise, _ in routes if bitwise}
-        rows.update({k: dict(v, gated_bitwise=k in gated)
-                     for k, v in _measure_routes(label, setups[label], routes).items()})
-    print(f"  routes measured in {time.perf_counter() - t0:.1f} s")
-    out = workdir / "conv_before.json"
+    # the two processes without the policy run beside the routes below, which
+    # are not timed; the steps' times come after, one process at a time
+    out, go = workdir / "conv_before.json", workdir / "conv_before.go"
     env = {k: v for k, v in os.environ.items() if k != "CUDNN_ERRATA_JSON_FILE"}
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, __file__, "--conv-before", str(out)], env=env,
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode:
-        print(proc.stdout[-4000:], proc.stderr[-4000:])
-        raise AssertionError(f"the measurement without the policy exited {proc.returncode}")
+    procs = [subprocess.Popen([sys.executable, __file__, *args], env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for args in (["--conv-before", str(out), str(go)], ["--conv-first"])]
+    try:
+        rows = {}
+        for label in CONV_MODELS:
+            routes = _conv_routes(label, setups[label], shapes[label])
+            gated = {f"{label} {name}" for name, bitwise, _ in routes if bitwise}
+            rows.update({k: dict(v, gated_bitwise=k in gated)
+                         for k, v in _measure_routes(label, setups[label], routes).items()})
+        print(f"  routes measured in {time.perf_counter() - t0:.1f} s")
+        failures, step1 = _check_step1(setups, cpu_ref)
+        failures += _check_probe(procs[1], smi)
+        go.touch()
+        stdout, stderr = procs[0].communicate(timeout=600)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if procs[0].returncode:
+        print(stdout[-4000:], stderr[-4000:])
+        raise AssertionError(f"the measurement without the policy exited {procs[0].returncode}")
     before = json.loads(out.read_text())
-    print(f"  without the policy (a subprocess): {time.perf_counter() - t0:.1f} s")
-    failures = []
+    print(f"  without the policy (a subprocess): {time.perf_counter() - t0:.1f} s from the "
+          f"phase's routes", flush=True)
     for key, row in rows.items():
         ref = {mode: before[mode].get(key) for mode in ("unrestricted", "deterministic")}
         extra = "".join(f"; {mode} {r['err']:.2e}{' bitwise' if r['bitwise'] else ''}"
@@ -3700,6 +3984,7 @@ def phase_conv_policy(workdir: Path, smi: str) -> None:
             failures.append(f"{key}: two evaluations differ")
         if row["transforms"]:
             failures.append(f"{key}: launched {row['transforms']}")
+    _unrestricted_rows(before, step1)
     after = _cost_steps(setups)
     for name, old in ((n, before["steps"][n]) for n in after):
         print(f"  {name}: {old:.4f} s without the policy, {after[name]:.4f} s with it "
@@ -3782,51 +4067,193 @@ def phase_make_data(workdir: Path, smi: str) -> None:
         raise AssertionError(f"main_toy on banana at seed 33: {mp}, {ind}, {result['figures']}")
 
 
+# --- phase 34: the public API --------------------------------------------------
+
+def phase_public_api(workdir: Path, train: dict, last: dict, smi: str) -> dict:
+    """The package's public API on the card, imported only through the
+    subpackages' exports: ``count_params``/``num_curvature_params`` of LeNet5
+    and ResNet1M; ``train_inducing_points`` (gram, 3 steps on phase 7's MAP,
+    M = 100, X its 128 images) with the ``mnist`` image callback at every
+    step, launching B1 and B2 and their backward passes (the counts reset
+    just before); ``is_pd`` on the Gram of the trained Z plus α·I, and on it
+    with one eigenvalue shifted negative; ``nystrom_preconditioner`` feeding
+    ``cg_batched`` on that Gram plus α·I (fewer iterations than plain CG);
+    ``exp_plots`` on a record of the ``cli/evaluate.py --out_json`` format
+    that holds this predictor's metrics on one test batch. Then the step's
+    kernels timed at its shapes (d_z = 1,000, d_x = 1,280, D = 61,706) by
+    phase 12's rules."""
+    print("== phase 34: the public API through the subpackages' exports", flush=True)
+    from laplace_inducing_points_tpu_torch.core import (count_params, dense_wt,
+                                                        num_curvature_params)
+    from laplace_inducing_points_tpu_torch.data import cycling_batches
+    from laplace_inducing_points_tpu_torch.evaluation import eval_dataset_extended
+    from laplace_inducing_points_tpu_torch.inference import ScalableLLAPredictor
+    from laplace_inducing_points_tpu_torch.models import LeNet5, ResNet1M
+    from laplace_inducing_points_tpu_torch.ops import cg_batched, nystrom_preconditioner, syrk
+    from laplace_inducing_points_tpu_torch.training import train_inducing_points
+    from laplace_inducing_points_tpu_torch.utils import is_pd
+    from laplace_inducing_points_tpu_torch.viz import exp_plots
+    from laplace_inducing_points_tpu_torch.viz.nplot import make_inducing_callback
+    t0 = time.perf_counter()
+    state, X, alpha = train["state"], train["X"][:128], train["alpha"]
+    counts = {"LeNet5": (count_params(LeNet5()), num_curvature_params(state)),
+              "ResNet1M": (count_params(ResNet1M(10)), num_curvature_params(ResNet1M(10)))}
+    print(f"  count_params, num_curvature_params: {json.dumps(counts)}", flush=True)
+    if counts != {"LeNet5": (61706, 61706), "ResNet1M": (1084586, 1084586)}:
+        raise AssertionError(f"parameter counts {counts}")
+    fig_dir = workdir / "fig_public_api"
+    callback = make_inducing_callback("mnist", every=1, fig_dir=str(fig_dir))
+    _reset_counts()
+    Z = train_inducing_points(state, train["Z"], cycling_batches([(X, torch.zeros(len(X)))]),
+                              alpha=alpha, num_steps=3, lr=1e-3, full_set_size=60000,
+                              callback=callback)
+    launches = _read_counts()
+    try:
+        import matplotlib  # noqa: F401
+        png = (fig_dir / "ips_mnist.png").exists()
+    except ImportError:
+        png = None
+    print(f"  train_inducing_points: 3 gram steps, Z moved {float((Z - train['Z']).abs().max()):.3g};"
+          f" launches {json.dumps({k: launches[k] for k in CHUNKED_KERNELS})}; ips_mnist.png "
+          f"{'written' if png else 'not written' if png is False else 'not drawn (no matplotlib)'}",
+          flush=True)
+    if not (all(launches[k] > 0 for k in CHUNKED_KERNELS) and bool(torch.isfinite(Z).all())
+            and not torch.equal(Z, train["Z"]) and png is not False):
+        raise AssertionError(f"train_inducing_points through the exports: {launches}, png {png}")
+    with torch.no_grad():
+        G = syrk(dense_wt(state, Z)).double()
+    C = G + alpha * torch.eye(len(G), dtype=G.dtype, device=G.device)
+    lam, V = torch.linalg.eigh(C)
+    C_neg = C - (float(lam[0]) + 1.0) * torch.outer(V[:, 0], V[:, 0])
+    pd = (is_pd(C), is_pd(C_neg))
+    print(f"  is_pd(Gram + alpha I) {pd[0]} (eigenvalues {float(lam[0]):.3g} .. "
+          f"{float(lam[-1]):.3g}); one eigenvalue shifted to -1: {pd[1]}", flush=True)
+    if pd != (True, False):
+        raise AssertionError(f"is_pd {pd}")
+    G32 = G.float()
+    matmat = lambda B: B @ G32 + alpha * B  # noqa: E731
+    B = torch.randn(4, len(G32), device="cuda", generator=torch.Generator(device="cuda")
+                    .manual_seed(SEED + 34))
+    precond = nystrom_preconditioner(lambda B: B @ G32, len(G32), 64, alpha,
+                                     torch.Generator(device="cuda").manual_seed(SEED + 35))
+    _, plain = cg_batched(matmat, B, tol=1e-4, maxiter=2000)
+    _, pre = cg_batched(matmat, B, tol=1e-4, maxiter=2000, precond=precond)
+    print(f"  nystrom_preconditioner (rank 64) into cg_batched on Gram + alpha I: "
+          f"{int(pre.iterations)} iterations (residual {float(pre.rel_residual):.1e}) against "
+          f"{int(plain.iterations)} unpreconditioned ({float(plain.rel_residual):.1e})",
+          flush=True)
+    if not int(pre.iterations) < int(plain.iterations):
+        raise AssertionError("the Nystrom preconditioner did not cut CG's iterations")
+    from laplace_inducing_points_tpu_torch.data.scale import load_arrays
+    with contextlib.redirect_stdout(None):
+        xt, yt = load_arrays("mnist", train=False, root=train["data_dir"])
+    with torch.no_grad():
+        pred = ScalableLLAPredictor(state, Z, full_set_size=60000)
+        rec = eval_dataset_extended(state, [(xt[:256], yt[:256])], Z, alpha=alpha,
+                                    full_set_size=60000, num_mc_samples=200,
+                                    generator=torch.Generator(device="cuda").manual_seed(SEED),
+                                    predictor=pred)
+    record = {"dataset": "mnist", "alpha": alpha, "iter": 0, "predictive": "weight",
+              "mc": 200, "device": "cuda", "batches": 1,
+              **{k: rec[k] for k in ("nll", "acc", "brier", "ece")}}
+    jsonl = workdir / "public_api_eval.jsonl"
+    jsonl.write_text(json.dumps(record) + "\n")
+    drawn = exp_plots.plot_records(exp_plots.load_records([str(jsonl)]),
+                                   str(fig_dir / "exp.png"))
+    print(f"  exp_plots on its evaluate record {json.dumps(record)}: "
+          f"{drawn or 'not drawn (no matplotlib)'}; phase 34 took "
+          f"{time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    if exp_plots.load_records([str(jsonl)]) != [record] or not all(
+            math.isfinite(record[k]) for k in ("nll", "acc", "brier", "ece")):
+        raise AssertionError(f"the evaluate record {record}")
+    rows = _scale_kernels("public_api", 10 * len(Z), 10 * len(X), state.spec.num_params)
+    rows["matmul_nt"] = rows["matmul_nt.cross_gram"]        # the step's matmul_nt
+    return {"launches": {k: launches[k] for k in CHUNKED_KERNELS}, "rows": rows}
+
+
+def start_cpu_reference(workdir: Path):
+    """Phase 32's CPU reference (:func:`cpu_reference`), started to run beside
+    phases 3-31: ``(process, output path)``."""
+    print("== phase 32's CPU reference started beside the phases before it (nice 19)", flush=True)
+    out = workdir / "cpu_reference.pt"
+    proc = subprocess.Popen([sys.executable, __file__, "--cpu-reference", str(out)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
 def main() -> int:
+    start = time.perf_counter()
     smi = phase_environment()
     phase_build()
-    kernel_rows = phase_kernels()
     with tempfile.TemporaryDirectory() as tmp:
-        launches, _ = phase_main_path(Path(tmp))
-        phase_agreement(Path(tmp))
-        backward_rows = phase_backward()
-        train = phase_training(Path(tmp), backward_rows)
-        phase_gradient_agreement(train)
-        sweep_rows = phase_sweep()
-        stochastic = phase_stochastic(Path(tmp), train)
-        phase_estimator_agreement(train, stochastic["ip"])
-        print("== phase 12: the kernels at the wide MLP's shapes (mlp_mnist.yml)",
+        cpu_ref = start_cpu_reference(Path(tmp))
+        try:
+            return _phases(Path(tmp), smi, cpu_ref, start)
+        finally:
+            if cpu_ref[0].poll() is None:
+                cpu_ref[0].kill()
+                cpu_ref[0].wait()
+
+
+def _phases(workdir: Path, smi: str, cpu_ref, start: float) -> int:
+    def lap(phases: str):
+        print(f"  [phases {phases} done {time.perf_counter() - start:.1f} s into the run]",
               flush=True)
-        scale_rows = {"mlp_mnist": _scale_kernels(
-            "mlp_mnist", 1000, 1280, 235146,
-            extra=(("syrk", (lambda g: torch.randn(2560, 235146, generator=g,
-                                                   device="cuda"),)),))}
-        scale = {"mlp_mnist": phase_scale_path(Path(tmp), "mlp_mnist", "phase 13")}
-        phase_scale_timings(scale["mlp_mnist"], "mlp_mnist")
-        del scale["mlp_mnist"]["state"], scale["mlp_mnist"]["Z"], scale["mlp_mnist"]["X"]
-        print("== phase 14: the kernels at ResNet1M's shapes (resnet1m_cifar10.yml)",
-              flush=True)
-        scale_rows["resnet1m_cifar10"] = _scale_kernels(
-            "resnet1m_cifar10", 500, 320, 1084586,
-            extra=(("matmul_nn", (lambda g: torch.randn(500, 500, generator=g, device="cuda"),
-                                  lambda g: torch.randn(500, 1084586, generator=g,
-                                                        device="cuda"))),
-                   ("matmul_nn", (lambda g: torch.randn(500, 320, generator=g, device="cuda"),
-                                  lambda g: torch.randn(320, 1084586, generator=g,
-                                                        device="cuda")))))
-        resnet = phase_scale_path(Path(tmp), "resnet1m_cifar10", "phase 15")
-        phase_scale_timings(resnet, "resnet1m_cifar10")
-        phase_gradient_agreement(resnet, "phase 16")
-        scale["resnet1m_cifar10"] = resnet
-        del resnet["state"], resnet["Z"], resnet["X"]
-        torch.cuda.empty_cache()
-        matfree = run_matfree(Path(tmp), smi)
-        torch.cuda.empty_cache()
-        toy = run_toy(Path(tmp), smi)
-        torch.cuda.empty_cache()
-        last = run_last_modules(Path(tmp), train, kernel_rows, backward_rows, smi)
-        phase_conv_policy(Path(tmp), smi)
-        phase_make_data(Path(tmp), smi)
+
+    kernel_rows = phase_kernels()
+    launches, _ = phase_main_path(workdir)
+    lap("3-4")
+    phase_agreement(workdir)
+    backward_rows = phase_backward()
+    lap("5-6")
+    train = phase_training(workdir, backward_rows)
+    phase_gradient_agreement(train)
+    lap("7-8")
+    sweep_rows = phase_sweep()
+    stochastic = phase_stochastic(workdir, train)
+    phase_estimator_agreement(train, stochastic["ip"])
+    lap("9-11")
+    print("== phase 12: the kernels at the wide MLP's shapes (mlp_mnist.yml)",
+          flush=True)
+    scale_rows = {"mlp_mnist": _scale_kernels(
+        "mlp_mnist", 1000, 1280, 235146,
+        extra=(("syrk", (lambda g: torch.randn(2560, 235146, generator=g,
+                                               device="cuda"),)),))}
+    scale = {"mlp_mnist": phase_scale_path(workdir, "mlp_mnist", "phase 13")}
+    phase_scale_timings(scale["mlp_mnist"], "mlp_mnist")
+    lap("12-13")
+    del scale["mlp_mnist"]["state"], scale["mlp_mnist"]["Z"], scale["mlp_mnist"]["X"]
+    print("== phase 14: the kernels at ResNet1M's shapes (resnet1m_cifar10.yml)",
+          flush=True)
+    scale_rows["resnet1m_cifar10"] = _scale_kernels(
+        "resnet1m_cifar10", 500, 320, 1084586,
+        extra=(("matmul_nn", (lambda g: torch.randn(500, 500, generator=g, device="cuda"),
+                              lambda g: torch.randn(500, 1084586, generator=g,
+                                                    device="cuda"))),
+               ("matmul_nn", (lambda g: torch.randn(500, 320, generator=g, device="cuda"),
+                              lambda g: torch.randn(320, 1084586, generator=g,
+                                                    device="cuda")))))
+    resnet = phase_scale_path(workdir, "resnet1m_cifar10", "phase 15")
+    phase_scale_timings(resnet, "resnet1m_cifar10")
+    phase_gradient_agreement(resnet, "phase 16")
+    lap("14-16")
+    scale["resnet1m_cifar10"] = resnet
+    del resnet["state"], resnet["Z"], resnet["X"]
+    torch.cuda.empty_cache()
+    matfree = run_matfree(workdir, smi)
+    lap("17-21")
+    torch.cuda.empty_cache()
+    toy = run_toy(workdir, smi)
+    lap("22-27")
+    torch.cuda.empty_cache()
+    last = run_last_modules(workdir, train, kernel_rows, backward_rows, smi)
+    lap("28-31")
+    phase_conv_policy(workdir, smi, cpu_ref)
+    lap("32")
+    phase_make_data(workdir, smi)
+    lap("33")
+    public = phase_public_api(workdir, train, last, smi)
+    lap("34")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
               "replaces": KERNELS[name][1], "launches": launches[name],
@@ -3901,6 +4328,16 @@ def main() -> int:
                           "replaces": KERNELS[name][1] if name in KERNELS else BACKWARD[name],
                           "launches": last[label]["launches"][name],
                           **{k: last[label]["rows"][name][k] for k in keys}})
+    # phase 34: the gram Z steps of train_inducing_points imported from the
+    # package's exports, each kernel timed at those steps' shapes
+    table += [{"name": f"{name}@public_api", "route": "cuda",
+               "source": (KERNELS[name][0] if name in KERNELS else
+                          "laplace_inducing_points_tpu_torch/csrc/matmul_tiled.cu"),
+               "replaces": KERNELS[name][1] if name in KERNELS else BACKWARD[name],
+               "launches": public["launches"][name],
+               **{k: public["rows"][name][k] for k in keys}}
+              for name in CHUNKED_KERNELS]
+    print(f"== smoke total {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3911,5 +4348,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--conv-before"]:
-        sys.exit(conv_before(sys.argv[2]))
+        sys.exit(conv_before(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--cpu-reference"]:
+        sys.exit(cpu_reference(sys.argv[2]))
+    if sys.argv[1:2] == ["--conv-first"]:
+        sys.exit(conv_first())
     sys.exit(main())

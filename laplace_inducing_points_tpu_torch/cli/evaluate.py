@@ -178,7 +178,7 @@ def main(argv=None) -> list[dict]:
     """Run the evaluation; returns one record per repetition."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    print(set_f32_policy())
+    print(set_f32_policy(device))
     print(f"[device] {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     cfg = load_experiment_config(args.config)

@@ -182,7 +182,7 @@ def main(argv=None) -> dict:
     ``inducing``, ``figures``: name -> finite)."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    print(set_f32_policy())
+    print(set_f32_policy(device))
     print(f"[device] {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     if args.style == "thesis":

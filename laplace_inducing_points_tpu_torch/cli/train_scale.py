@@ -201,7 +201,7 @@ def main(argv=None) -> dict:
             "--profile traces the inducing-training phase, which mode=train_map never "
             "reaches: run mode=train_inducing or full_pipeline to profile, or drop the flag")
     device = resolve_device(args.device)
-    print(set_f32_policy())
+    print(set_f32_policy(device))
     print(f"[device] {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     cfg = load_experiment_config(args.config)

@@ -1,6 +1,6 @@
 """The flat curvature-parameter vector and the weight converter.
 
-Counterpart of ``laplace_inducing_points_tpu/core/params.py:19-48``. The JAX
+Counterpart of ``laplace_inducing_points_tpu/core/params.py:19-54``. The JAX
 package ravels the network-weight pytree with ``ravel_pytree``: dict keys
 sorted as strings at every level, the ``logvar`` and ``batch_stats``
 collections left out, so within a layer ``bias`` comes before ``kernel``.
@@ -77,6 +77,42 @@ class FlatSpec:
             if name.split(".")[0] not in EXCLUDED_COLLECTIONS)
         return cls(paths=tuple(p for p, _ in leaves),
                    shapes=tuple(s for _, s in leaves))
+
+
+def count_params(tree: Any) -> int:
+    """Total number of scalars in a module's parameters (a regressor's
+    ``logvar`` included, BatchNorm statistics not: Flax keeps them outside
+    ``params``), a tensor or array, or a mapping or sequence of them (the
+    reference's ``count_params`` of a pytree, ``:40``)."""
+    if isinstance(tree, nn.Module):
+        return sum(p.numel() for p in tree.parameters())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel()
+    if isinstance(tree, Mapping):
+        return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_params(v) for v in tree)
+    return int(np.size(tree))
+
+
+def num_curvature_params(params: Any) -> int:
+    """Dimension D of the flat curvature-parameter vector of a
+    ``ModelState``, a ``FlatSpec``, a port model, or a parameter tree in the
+    reference's layout (its ``logvar`` and ``batch_stats`` left out, ``:45``)."""
+    spec = getattr(params, "spec", params)
+    if isinstance(spec, FlatSpec):
+        return spec.num_params
+    if isinstance(spec, nn.Module):
+        return FlatSpec.from_module(spec).num_params
+    return count_params(split_nn_params(params)[0])
+
+
+def print_summary(params: Any) -> None:
+    """The reference's two summary lines (``:51``): D and the size of a dense
+    D × D covariance."""
+    d = count_params(params)
+    print(f"Param count     (D) : {d}")
+    print(f"Cov. mat. size (D^2): {d**2:.3e}")
 
 
 def split_nn_params(params: Mapping[str, Any]) -> tuple[dict, dict]:

@@ -1,9 +1,11 @@
 """Numpy minibatch pipeline.
 
 Counterpart of ``laplace_inducing_points_tpu/data/loader.py:29-93``
-(``ArrayDataset``, ``DataLoader``, ``make_dataloaders``) and ``:158-179``
-(``cycling_batches``, one batch at a time). Batches stay numpy on the host;
-the harness and the trainers move each one to the model's device. An epoch's
+(``ArrayDataset``, ``DataLoader``, ``make_dataloaders``), ``:109-155``
+(``device_iter``) and ``:158-179`` (``cycling_batches``, one batch at a
+time). Batches stay numpy on the host; the harness and the trainers move each
+one to the model's device, and ``device_iter`` does so for a library
+caller. An epoch's
 shuffle is the JAX package's: a seed drawn from ``np.random.default_rng(seed)``
 drives the native splitmix64 Fisher-Yates (``data.native.shuffle_indices``),
 so the two packages give the same batches.
@@ -11,9 +13,11 @@ so the two packages give the same batches.
 
 from __future__ import annotations
 
-from typing import Iterator, Optional
+from collections import deque
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
+import torch
 
 from laplace_inducing_points_tpu_torch.data.native import shuffle_indices
 
@@ -72,6 +76,32 @@ def make_dataloaders(train: ArrayDataset, test: ArrayDataset,
         return train_loader, test_loader
     val_loader = DataLoader(val, batch_size, shuffle=False, drop_last=False)
     return train_loader, test_loader, val_loader
+
+
+def device_iter(loader: Iterable, device="cpu", *, prefetch: int = 2,
+                dtype: torch.dtype = torch.float32) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
+    """``loader``'s batches as tensors on ``device`` (inputs as ``dtype``),
+    with ``prefetch`` batches moved ahead: on a CUDA device from pinned
+    memory without blocking, so the copies overlap the caller's work on the
+    batch before. On a mesh, ``parallel.shard_batch`` splits each batch."""
+    device = torch.device(device)
+
+    def put(batch):
+        x, y = (torch.as_tensor(np.asarray(t)) for t in batch)
+        x = x.to(dtype)
+        if device.type == "cuda":
+            return (x.pin_memory().to(device, non_blocking=True),
+                    y.pin_memory().to(device, non_blocking=True))
+        return x.to(device), y.to(device)
+
+    batches = iter(loader)
+    pending = deque(put(b) for _, b in zip(range(max(prefetch, 1)), batches))
+    while pending:
+        out = pending.popleft()
+        for b in batches:
+            pending.append(put(b))
+            break
+        yield out
 
 
 def cycling_batches(loader):

@@ -50,7 +50,7 @@ class Conv(nn.Module):
     ``"VALID"`` or ``"SAME"`` (XLA's, :func:`same_padding`), ``strides`` and
     an optional bias. Every call applies the convolution policy
     (``utils.device.set_conv_policy``: cuDNN deterministic, its Winograd and
-    FFT engines blocked)."""
+    FFT engines blocked), checked once a process on each CUDA device."""
 
     def __init__(self, in_channels: int, features: int, window: tuple[int, int],
                  strides: tuple[int, int] = (1, 1), padding: str = "VALID",
@@ -74,7 +74,7 @@ class Conv(nn.Module):
                 pad = (h_lo, w_lo)
             else:
                 x = F.pad(x, (w_lo, w_hi, h_lo, h_hi))
-        set_conv_policy()
+        set_conv_policy(x.device)
         return F.conv2d(x, self.kernel.permute(3, 2, 0, 1), self.bias, self.strides, pad)
 
 
@@ -95,6 +95,16 @@ def batch_moments(reduce: Callable):
         yield
     finally:
         _BATCH_MOMENTS.reset(token)
+
+
+def inv_std(var: torch.Tensor, epsilon: float) -> torch.Tensor:
+    """BatchNorm's ``1 / sqrt(var + epsilon)``, a correctly rounded square root
+    and division where the reference has ``lax.rsqrt``: on CUDA
+    ``torch.rsqrt`` is the approximate ``rsqrtf`` (up to 2 ulp), an error the
+    same in every channel at a shared variance, which put seeded ResNet1M's
+    push-forward 5.2e-7 from float64 where this reads 1.7e-7 (the CPU's
+    2.7e-7; ``scripts/torch_batchnorm_rsqrt.py`` on an H100)."""
+    return 1.0 / torch.sqrt(var + epsilon)
 
 
 class BatchNorm(nn.Module):
@@ -131,5 +141,5 @@ class BatchNorm(nn.Module):
                 self.var.copy_(self.momentum * self.var + (1.0 - self.momentum) * var)
         else:
             mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        mul = inv_std(var, self.epsilon) * self.scale
         return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]

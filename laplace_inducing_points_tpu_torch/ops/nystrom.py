@@ -135,3 +135,15 @@ def precond_inv_sqrt_from_sketch(U: torch.Tensor, lam: torch.Tensor,
     mult = _coefficients(lam, good, rho, deflation_floor)
     coeff = torch.where(good, torch.sqrt(mult) - 1.0, torch.zeros_like(mult))
     return _low_rank_update(U, coeff)
+
+
+def nystrom_preconditioner(gram_matmat: MatMat, d: int, rank: int, rho: float,
+                           generator: Union[torch.Tensor, torch.Generator],
+                           deflation_floor: float = 1e-5, power: int = 0) -> MatMat:
+    """``apply(v) = P⁻¹ v`` for ``C = G + ρI`` from ``rank`` sketch matvecs in
+    one call: :func:`nystrom_sketch` then :func:`precond_from_sketch` (the
+    reference's one-call constructor, ``:186``). ``generator`` draws the start ``Ω`` or is
+    the ``(d, k)`` start itself. ``apply`` is symmetric positive definite, as
+    ``ops.cg.cg_batched``'s preconditioner must be."""
+    U, lam, good = nystrom_sketch(gram_matmat, d, rank, generator, power=power)
+    return precond_from_sketch(U, lam, good, rho, deflation_floor)

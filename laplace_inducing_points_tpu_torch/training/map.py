@@ -192,7 +192,8 @@ def _parallel_nll(state, flat: torch.Tensor, x: torch.Tensor, y: torch.Tensor, m
             if exchange is not None:
                 exchange.barrier.abort()
 
-    threads = [threading.Thread(target=run, args=(rank,)) for rank in range(len(shards))]
+    threads = [threading.Thread(target=run, args=(rank,), name=f"shard {rank}")
+               for rank in range(len(shards))]
     for t in threads:
         t.start()
     for t in threads:

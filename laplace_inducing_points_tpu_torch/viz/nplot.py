@@ -8,15 +8,17 @@ std, ``plot_lla_2d_classification`` ``:71``; the dense 1-D predictive with X
 and with Z, ``plot_regression_lla_1d`` ``:143``; the MAP / sampled Laplace /
 linearized panels, ``make_predictive_mean_figure`` ``:180``; the IP-LLA mean
 and std, ``make_comparison_figure`` ``:248``; the inducing-point
-trajectory, ``make_inducing_callback`` ``:325``), and a ``draw_*`` function
-that imports matplotlib inside itself. Without matplotlib :func:`draw` prints
-one line a figure and draws nothing; every computation has run all the same.
+trajectory and image grids, ``make_inducing_callback`` ``:325`` and
+``plot_image_grid`` ``:295``), and a ``draw_*`` function that imports
+matplotlib inside itself. Without matplotlib ``draw`` (``viz/style.py``)
+prints one line a figure and draws nothing; every computation has run all
+the same.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -26,6 +28,7 @@ from laplace_inducing_points_tpu_torch.evaluation.harness import make_batch_samp
 from laplace_inducing_points_tpu_torch.inference.lla import (predict_la_samples_dense,
                                                              predict_lla_dense,
                                                              predict_lla_scalable)
+from laplace_inducing_points_tpu_torch.viz.style import draw
 
 GRID_CHUNK = 4096        # grid points per predictive call
 
@@ -138,18 +141,6 @@ def all_finite(result: dict) -> bool:
 # ---------------------------------------------------------------------------
 # drawing (matplotlib, imported where it is used)
 # ---------------------------------------------------------------------------
-
-def draw(name: str, fn: Callable, *args, **kwargs) -> Optional[str]:
-    """``fn(*args, **kwargs)`` when matplotlib imports; otherwise one line
-    that the figure ``name`` was not drawn."""
-    try:
-        import matplotlib
-    except ImportError:
-        print(f"[viz] matplotlib not installed: {name} not drawn")
-        return None
-    matplotlib.use("Agg")
-    return fn(*args, **kwargs)
-
 
 def _heat_cmap():
     from laplace_inducing_points_tpu_torch.viz import style
@@ -291,26 +282,74 @@ def _draw_trajectory(traj: np.ndarray, z_np: np.ndarray, step: int, loss: float,
     return _save(fig, save_path)
 
 
+def _draw_image_grid(imgs: np.ndarray, color: bool, step, name: str,
+                     save_path: Optional[str]):
+    import matplotlib.pyplot as plt
+    n, cols = min(len(imgs), 32), 8
+    rows = -(-n // cols)
+    fig, axs = plt.subplots(rows, cols, figsize=(cols * 1.4, rows * 1.4), squeeze=False)
+    for i in range(rows * cols):
+        ax = axs[i // cols, i % cols]
+        ax.axis("off")
+        if i < n:
+            if color:
+                ax.imshow(np.clip(imgs[i], 0, 1))
+            else:
+                ax.imshow(imgs[i].squeeze(), cmap="gray")
+    fig.suptitle(f"{name} inducing points {step}")
+    if save_path:
+        os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
+        fig.savefig(save_path, dpi=120, bbox_inches="tight")
+        plt.close(fig)
+        return save_path
+    return fig, axs
+
+
+def plot_image_grid(batch, *, color: bool = False, step="", name: str = "",
+                    save_path: Optional[str] = None):
+    """The first 32 images of ``batch`` (NHWC; a tensor or an array) in rows
+    of 8, grayscale or ``color`` (``plot_image_grid``, ``:295``): the path
+    written, or ``(fig, axs)`` without ``save_path``; ``None`` without
+    matplotlib."""
+    imgs = _numpy(batch) if isinstance(batch, torch.Tensor) else np.asarray(batch)
+    return draw("the inducing-point image grid", _draw_image_grid, imgs, color, step, name,
+                save_path)
+
+
+IMAGE_PLOTS = {"mnist": False, "fmnist": False, "cifar10": True}      # -> color
+TRAJECTORY_PLOTS = ("spiral", "xor", "banana")
+
+
 def make_inducing_callback(plot_type: Optional[str], xtrain=None, ytrain=None,
                            every: int = 4, fig_dir: str = "fig", max_snapshots: int = 3):
-    """A ``callback(step, Z, loss)`` for ``train_inducing_points`` that keeps
-    the last ``max_snapshots`` Z of every ``every``-th step of a 2-D toy and
-    draws their trajectory over the data (``callback.trajectory`` holds
-    them); ``None`` for another plot type."""
-    if plot_type not in ("spiral", "xor", "banana"):
+    """A ``callback(step, Z, loss)`` for ``train_inducing_points`` that acts
+    every ``every``-th step (``:325``): for a 2-D toy it keeps the last
+    ``max_snapshots`` Z and draws their trajectory over the data
+    (``callback.trajectory`` holds them); for ``mnist``, ``fmnist`` and
+    ``cifar10`` it draws the first 32 points of Z as images into
+    ``ips_<plot_type>.png`` (``:345-351``). Z goes to the host once on such a
+    step and never on another. ``None`` for another plot type. Without
+    matplotlib it says so once and draws nothing."""
+    if plot_type not in TRAJECTORY_PLOTS and plot_type not in IMAGE_PLOTS:
         return None
     trajectory: list = []
     try:
         import matplotlib  # noqa: F401
         drawing = True
     except ImportError:
-        print("[viz] matplotlib not installed: the inducing-point trajectory not drawn")
+        what = ("the inducing-point trajectory" if plot_type in TRAJECTORY_PLOTS
+                else f"the inducing points of {plot_type}")
+        print(f"[viz] matplotlib not installed: {what} not drawn")
         drawing = False
 
     def callback(step: int, Z, loss: float):
-        if step % every != 0:
+        if step % every != 0 or not (drawing or plot_type in TRAJECTORY_PLOTS):
             return
-        z_np = np.asarray(Z.detach().cpu() if isinstance(Z, torch.Tensor) else Z)
+        z_np = _numpy(Z) if isinstance(Z, torch.Tensor) else np.asarray(Z)
+        if plot_type in IMAGE_PLOTS:
+            plot_image_grid(z_np[:32], color=IMAGE_PLOTS[plot_type], step=step, name=plot_type,
+                            save_path=os.path.join(fig_dir, f"ips_{plot_type}.png"))
+            return
         trajectory.append(z_np)
         del trajectory[:-max_snapshots]
         if drawing:

@@ -12,6 +12,7 @@ it, so the module imports on a machine without it. Styling is opt-in:
 from __future__ import annotations
 
 from enum import Enum
+from typing import Callable, Optional
 
 
 class Colors(str, Enum):
@@ -76,3 +77,15 @@ def get_palette():
         return sns.color_palette("icefire", as_cmap=True)
     except ImportError:
         return mpl.colormaps["coolwarm"]
+
+
+def draw(name: str, fn: Callable, *args, **kwargs) -> Optional[str]:
+    """``fn(*args, **kwargs)`` when matplotlib imports (on its file backend);
+    otherwise one line that the figure ``name`` was not drawn."""
+    try:
+        import matplotlib
+    except ImportError:
+        print(f"[viz] matplotlib not installed: {name} not drawn")
+        return None
+    matplotlib.use("Agg")
+    return fn(*args, **kwargs)
