@@ -39,6 +39,7 @@ from torch.func import functional_call, jacrev, jvp, vjp, vmap
 
 from laplace_inducing_points_tpu_torch.core import loss_hessians as lh
 from laplace_inducing_points_tpu_torch.ops.cuda.sweep import ggn_sweep
+from laplace_inducing_points_tpu_torch.utils.profiling import span
 
 
 def pdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -168,9 +169,10 @@ def dense_wt(state, Z: torch.Tensor, *, scale: float = 1.0,
     the extra memory to ``block·K·D`` plus one chunk's activations.
     """
     rows = row_fn(state)
-    parts = [rows(Z[s]) for s in _blocks(Z.shape[0], example_block)]
-    R = parts[0] if len(parts) == 1 else torch.cat(parts)
-    return R if scale == 1.0 else scale * R
+    with span("rows"):
+        parts = [rows(Z[s]) for s in _blocks(Z.shape[0], example_block)]
+        R = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return R if scale == 1.0 else scale * R
 
 
 def dense_wt_pullback(state, Z: torch.Tensor, ct: torch.Tensor, *,
@@ -186,10 +188,11 @@ def dense_wt_pullback(state, Z: torch.Tensor, ct: torch.Tensor, *,
     rows = row_fn(state)
     K = ct.shape[0] // Z.shape[0]
     grads = []
-    for s in _blocks(Z.shape[0], example_block):
-        _, pull = vjp(rows, Z[s])
-        grads.append(pull(ct[s.start * K:s.stop * K])[0])
-    return grads[0] if len(grads) == 1 else torch.cat(grads)
+    with span("pullback"):
+        for s in _blocks(Z.shape[0], example_block):
+            _, pull = vjp(rows, Z[s])
+            grads.append(pull(ct[s.start * K:s.stop * K])[0])
+        return grads[0] if len(grads) == 1 else torch.cat(grads)
 
 
 # ---------------------------------------------------------------------------

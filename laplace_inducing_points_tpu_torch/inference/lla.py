@@ -42,6 +42,7 @@ from laplace_inducing_points_tpu_torch.ops.nystrom import sketch_probe_block
 from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nn, matmul_nt
 from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk
 from laplace_inducing_points_tpu_torch.training.inducing import matfree_sketch
+from laplace_inducing_points_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -201,20 +202,25 @@ def amortized_logit_samples_from_noise(state, R: torch.Tensor, lam: torch.Tensor
     samples, bounding the live (chunk, B, activation) tangents.
     """
     g = _g_weights(lam, alpha, beta, rank_tol, range_clip_min)
-    lin = ops.linearize_model(state, x)
-    push = vmap(lin.jvp)
+    lin = None
 
     def draw(e: torch.Tensor) -> torch.Tensor:
-        U = matmul_nt(e, R)                                    # (n, d)
-        mixed = ops.pdot(U, V) * g                             # (n, d) · diag(g)
-        w = e / math.sqrt(alpha) + matmul_nn(ops.pdot(mixed, V.T), R)
-        return push(w)                                         # (n, B, K)
+        nonlocal lin
+        with span("contract"):
+            U = matmul_nt(e, R)                                # (n, d)
+            mixed = ops.pdot(U, V) * g                         # (n, d) · diag(g)
+            w = e / math.sqrt(alpha) + matmul_nn(ops.pdot(mixed, V.T), R)
+        with span("pushforward"):
+            if lin is None:         # the primal outputs f0, once, with the first block
+                lin = ops.linearize_model(state, x)
+            return vmap(lin.jvp)(w)                            # (n, B, K)
 
     S = eps.shape[0]
     if not sample_block or sample_block >= S:
-        return lin.f0[None] + draw(eps)
-    return lin.f0[None] + torch.cat([draw(eps[i:i + sample_block])
-                                     for i in range(0, S, sample_block)])
+        pushed = draw(eps)
+    else:
+        pushed = torch.cat([draw(eps[i:i + sample_block]) for i in range(0, S, sample_block)])
+    return lin.f0[None] + pushed
 
 
 def amortized_logit_samples(state, R: torch.Tensor, lam: torch.Tensor,
@@ -480,45 +486,46 @@ class ScalableLLAPredictor:
         noise (``ε``; the cov path's ``η (S, B, K)``; the matfree path's ``ε``
         then ``η``) from ``generator``. ``cache_key`` names the batch for the
         cov path's statistics cache."""
-        device = self.state.device
-        x = x.to(device=device, dtype=torch.float32)
-        if self.method == "weight":
-            eps = torch.randn(num_samples, self.R.shape[1], generator=generator,
-                              device=device, dtype=self.R.dtype)
+        with span("predict"):
+            device = self.state.device
+            x = x.to(device=device, dtype=torch.float32)
+            if self.method == "weight":
+                eps = torch.randn(num_samples, self.R.shape[1], generator=generator,
+                                  device=device, dtype=self.R.dtype)
+                outs = self._split(
+                    lambda rep, f, e: amortized_logit_samples_from_noise(
+                        rep, *f, alpha, self.beta, x.to(rep.device), e, self.rank_tol,
+                        self.range_clip_min, self.sample_block), eps)
+                return torch.cat([o.to(device) for o in outs])
+            if self.method == "cov":
+                f0, JJt, A = self.batch_stats(x, cache_key)
+                eta = torch.randn((num_samples, *f0.shape), generator=generator, device=device,
+                                  dtype=f0.dtype)
+                out = joint_logit_samples_from_noise(f0, JJt, A, self.gram, self.lam, self.V,
+                                                     alpha, self.beta, eta, self.rank_tol,
+                                                     self.range_clip_min)
+                self._cov_self_check(x, alpha)
+                return out
+            eps = torch.randn(num_samples, self.state.spec.num_params, generator=generator,
+                              device=device)
+            eta = torch.randn(num_samples, self.d, generator=generator, device=device)
             outs = self._split(
-                lambda rep, f, e: amortized_logit_samples_from_noise(
-                    rep, *f, alpha, self.beta, x.to(rep.device), e, self.rank_tol,
-                    self.range_clip_min, self.sample_block), eps)
-            return torch.cat([o.to(device) for o in outs])
-        if self.method == "cov":
-            f0, JJt, A = self.batch_stats(x, cache_key)
-            eta = torch.randn((num_samples, *f0.shape), generator=generator, device=device,
-                              dtype=f0.dtype)
-            out = joint_logit_samples_from_noise(f0, JJt, A, self.gram, self.lam, self.V,
-                                                 alpha, self.beta, eta, self.rank_tol,
-                                                 self.range_clip_min)
-            self._cov_self_check(x, alpha)
+                lambda rep, f, e, t: matfree_logit_samples_from_noise(
+                    rep, *f, alpha, self.full_set_size, x.to(rep.device), e, t, self.cg_tol,
+                    self.cg_maxiter, self.sample_block, self.cg_example_block), eps, eta)
+            out = torch.cat([o.to(device) for o, _ in outs])
+            res = max(float(r) for _, r in outs)
+            self.last_cg_residual = float(res)
+            # floored at the f32-attainable residual: a tolerance below round-off
+            # that bottoms out near 1e-6 is a converged solve, not a stall
+            if not self._cg_warned and self.last_cg_residual > max(5 * self.cg_tol, 1e-5):
+                self._cg_warned = True
+                warnings.warn(
+                    f"ScalableLLAPredictor(method='matfree'): worst CG relative residual "
+                    f"{self.last_cg_residual:.2e} exceeds 5x cg_tol={self.cg_tol:g}: CG is "
+                    f"exiting on maxiter, not tolerance. The draw error is bounded by the "
+                    f"residual; raise precond_rank and/or cg_maxiter.", stacklevel=2)
             return out
-        eps = torch.randn(num_samples, self.state.spec.num_params, generator=generator,
-                          device=device)
-        eta = torch.randn(num_samples, self.d, generator=generator, device=device)
-        outs = self._split(
-            lambda rep, f, e, t: matfree_logit_samples_from_noise(
-                rep, *f, alpha, self.full_set_size, x.to(rep.device), e, t, self.cg_tol,
-                self.cg_maxiter, self.sample_block, self.cg_example_block), eps, eta)
-        out = torch.cat([o.to(device) for o, _ in outs])
-        res = max(float(r) for _, r in outs)
-        self.last_cg_residual = float(res)
-        # floored at the f32-attainable residual: a tolerance below round-off
-        # that bottoms out near 1e-6 is a converged solve, not a stall
-        if not self._cg_warned and self.last_cg_residual > max(5 * self.cg_tol, 1e-5):
-            self._cg_warned = True
-            warnings.warn(
-                f"ScalableLLAPredictor(method='matfree'): worst CG relative residual "
-                f"{self.last_cg_residual:.2e} exceeds 5x cg_tol={self.cg_tol:g}: CG is "
-                f"exiting on maxiter, not tolerance. The draw error is bounded by the "
-                f"residual; raise precond_rank and/or cg_maxiter.", stacklevel=2)
-        return out
 
 
 def cov_check_fraction(w_draws: torch.Tensor, c_draws: torch.Tensor) -> float:

@@ -62,6 +62,7 @@ from laplace_inducing_points_tpu_torch.ops.cuda.matmul import matmul_nn, matmul_
 from laplace_inducing_points_tpu_torch.ops.cuda.sweep import ggn_sweep
 from laplace_inducing_points_tpu_torch.ops.cuda.syrk import syrk
 from laplace_inducing_points_tpu_torch.utils.checkpoint import save_array
+from laplace_inducing_points_tpu_torch.utils.profiling import span
 
 
 def kl_objective_dense(Z: torch.Tensor, X: torch.Tensor, state, alpha: float,
@@ -171,8 +172,10 @@ def _rows_value_and_grad(loss_of_rows: Callable, Rz: torch.Tensor, Rx: torch.Ten
     backward runs the kernels' backward passes (``Rx`` needs none)."""
     Rz = Rz.detach().requires_grad_()
     with torch.enable_grad():
-        loss = loss_of_rows(Rz, Rx.detach())
-        (ct,) = torch.autograd.grad(loss, Rz)
+        with span("objective.forward"):
+            loss = loss_of_rows(Rz, Rx.detach())
+        with span("objective.backward"):
+            (ct,) = torch.autograd.grad(loss, Rz)
     return loss.detach(), ct
 
 
@@ -620,35 +623,36 @@ def optimize_step(Z: torch.Tensor, X: torch.Tensor, state, alpha: float,
     fresh ones from. ``matfree``: the matfree objective's knobs
     (``cg_tol``, ``cg_maxiter``, ``precond_rank``, ``precond_power``,
     ``precond_sketch``, ``cg_example_block``)."""
-    if objective in ("gram", "gram_chunked"):
-        if objective == "gram_chunked":
-            example_block = example_block or 4
-        loss, grad = kl_value_and_grad_gram(Z, X, state, alpha,
-                                            full_set_size=full_set_size,
-                                            example_block=example_block)
-    elif objective == "dense":
-        z = Z.detach().requires_grad_()
-        with torch.enable_grad():
-            value = kl_objective_dense(z, X, state, alpha, full_set_size=full_set_size)
-            (grad,) = torch.autograd.grad(value, z)
-        loss = value.detach()
-    elif objective in ("stochastic", "stochastic_matfree"):
-        if probes is None:
-            raise ValueError("the stochastic objectives need probes or a generator")
-        knobs = dict(full_set_size=full_set_size, st_samples=st_samples,
-                     slq_samples=slq_samples, slq_num_matvecs=slq_num_matvecs)
-        if objective == "stochastic":
-            loss, grad = kl_value_and_grad_stochastic(
-                Z, X, state, alpha, probes, example_block=example_block, **knobs)
+    with span("z_step"):
+        if objective in ("gram", "gram_chunked"):
+            if objective == "gram_chunked":
+                example_block = example_block or 4
+            loss, grad = kl_value_and_grad_gram(Z, X, state, alpha,
+                                                full_set_size=full_set_size,
+                                                example_block=example_block)
+        elif objective == "dense":
+            z = Z.detach().requires_grad_()
+            with torch.enable_grad():
+                value = kl_objective_dense(z, X, state, alpha, full_set_size=full_set_size)
+                (grad,) = torch.autograd.grad(value, z)
+            loss = value.detach()
+        elif objective in ("stochastic", "stochastic_matfree"):
+            if probes is None:
+                raise ValueError("the stochastic objectives need probes or a generator")
+            knobs = dict(full_set_size=full_set_size, st_samples=st_samples,
+                         slq_samples=slq_samples, slq_num_matvecs=slq_num_matvecs)
+            if objective == "stochastic":
+                loss, grad = kl_value_and_grad_stochastic(
+                    Z, X, state, alpha, probes, example_block=example_block, **knobs)
+            else:
+                loss, grad = kl_value_and_grad_matfree(Z, X, state, alpha, probes, **knobs,
+                                                       **matfree)
         else:
-            loss, grad = kl_value_and_grad_matfree(Z, X, state, alpha, probes, **knobs,
-                                                   **matfree)
-    else:
-        raise ValueError(f"unknown objective {objective!r}: one of {sorted(OBJECTIVES)}")
-    Z.grad = grad
-    optimizer.step()
-    Z.grad = None
-    return loss
+            raise ValueError(f"unknown objective {objective!r}: one of {sorted(OBJECTIVES)}")
+        Z.grad = grad
+        optimizer.step()
+        Z.grad = None
+        return loss
 
 
 @torch.no_grad()

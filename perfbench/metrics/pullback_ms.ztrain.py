@@ -1,0 +1,7 @@
+"""``pullback_ms.ztrain``: ``phases.phase_ms`` of ``pullback``; read in the ztrain cells."""
+
+from perfbench import phases
+
+
+def read(ctx: dict):
+    return phases.phase_ms(ctx, "ztrain", "pullback")

@@ -1,0 +1,7 @@
+"""``pushforward_ms.serve``: ``phases.phase_ms`` of ``pushforward``; read in the serve cells."""
+
+from perfbench import phases
+
+
+def read(ctx: dict):
+    return phases.phase_ms(ctx, "serve", "pushforward")
