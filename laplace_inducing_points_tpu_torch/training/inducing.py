@@ -38,17 +38,30 @@ operator ``[√α v; √β Wzᵀv]`` matrix-free with each Krylov step recompute
 the backward pass. ``S_X`` keeps the materialized design: the data batch's
 rows ``Rx`` (``d_x × D``, independent of M) through the ``ggn_sweep``
 kernel. Its ``dL/dZ`` is plain autograd through it all.
+
+On a CUDA device ``optimize_step`` replays the gram objectives'
+value-and-grad (rows, Gram algebra, its backward, pullback) from one CUDA
+graph per ``Z``: the step is a fixed sequence of launches on fixed shapes,
+with no host read, so the host's cost per launch leaves the step's pace.
+The first call with a new :func:`graph_key` runs eager (the warm-up of every
+handle, plan and lazy state the capture needs), the second captures and
+replays, every later one copies its batch into the graph's own and replays.
+A capture that fails leaves that key eager, with one warning. The CPU, the
+other objectives and the direct calls of :func:`kl_value_and_grad_gram` run
+eager as ever.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import partial
 from typing import Callable, Iterable, Optional, Union
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from laplace_inducing_points_tpu_torch.core import operators as ops
 from laplace_inducing_points_tpu_torch.ops import cg as cg_mod
@@ -118,6 +131,28 @@ def _c_cholesky(Gzz: torch.Tensor, alpha: float, beta: float) -> torch.Tensor:
     return _cholesky(ops.ensure_symmetry(C, jitter=0.0) + _pivot_jitter(C) * eye)
 
 
+class _Trace(torch.autograd.Function):
+    """``torch.trace`` of a matrix, its cotangent put on the diagonal of
+    zeros on the device: PyTorch's own backward fills the diagonal through
+    ``index_fill_`` with a tensor value, which reads it on the host, and a
+    host read stops the capture of the Z step's CUDA graph. The same values
+    both ways."""
+
+    @staticmethod
+    def forward(A):
+        return torch.trace(A)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.shape = inputs[0].shape
+
+    @staticmethod
+    def backward(ctx, ct):
+        grad = ct.new_zeros(ctx.shape)
+        grad.diagonal().copy_(ct.expand(min(ctx.shape)))
+        return grad
+
+
 def _kl_core(Gzz, Gxz, tr_Gxx, D: int, alpha: float, beta: float, gamma: float,
              include_constants: bool = True) -> torch.Tensor:
     """KL value from the small Gram blocks.
@@ -136,7 +171,7 @@ def _kl_core(Gzz, Gxz, tr_Gxx, D: int, alpha: float, beta: float, gamma: float,
     C_inv_Gzz = torch.cholesky_solve(Gzz, L)
     C_inv_Gxz_t = torch.cholesky_solve(Gxz.T, L)
 
-    trace_term = (-torch.trace(C_inv_Gzz)
+    trace_term = (-_Trace.apply(C_inv_Gzz)
                   - gamma * a_inv * torch.sum(Gxz.T * C_inv_Gxz_t))
     # logdet(I + (β/α)Gzz) = d_z·log(β/α) + logdet(C), via the Cholesky
     logdet_term = (d_z * math.log(beta * a_inv)
@@ -610,6 +645,157 @@ def make_optimizer(Z: torch.Tensor, lr: float) -> torch.optim.Adam:
     return torch.optim.Adam([Z], lr=lr, eps=1e-8)
 
 
+# ---------------------------------------------------------------------------
+# the gram step's value-and-grad as one CUDA graph
+# ---------------------------------------------------------------------------
+
+# the kernels whose launch counters a replay advances by what its capture counted
+_COUNTED_KERNELS = (syrk, matmul_nt, matmul_nn, ggn_sweep)
+
+
+def graph_key(Z: torch.Tensor, X: torch.Tensor, state, alpha: float, *, objective: str,
+              full_set_size: Optional[int], example_block: Optional[int]) -> tuple:
+    """What a captured gram value-and-grad at ``Z`` was recorded for, beyond
+    the values in the memory it reads: the shapes, dtypes and scalars of its
+    launches, and the addresses of the tensors it reads in place (``Z``, the
+    weights, the BatchNorm statistics; the batch is copied into a buffer of
+    the graph's own, so a new batch of the same shape keeps the key). Equal
+    keys replay one graph; a changed key captures anew."""
+    return (Z.data_ptr(), tuple(Z.shape), Z.dtype, tuple(X.shape), X.dtype, float(alpha),
+            full_set_size, objective, example_block, id(state.model), state.model_kind,
+            state.flat_params.data_ptr(),
+            tuple((name, t.data_ptr()) for name, t in state.batch_stats.items()))
+
+
+@dataclass(eq=False)
+class _StepGraph:
+    """One ``Z``'s graph: its key and the objects the key names (held, so
+    that no other tensor or module takes their addresses while it lives);
+    the graph, ``None`` until the key's second call and for good once its
+    capture failed; its static batch and outputs; the kernel launches its
+    capture counted, by counter."""
+    key: tuple
+    refs: tuple
+    graph: Optional[torch.cuda.CUDAGraph] = None
+    failed: bool = False
+    X: Optional[torch.Tensor] = None
+    loss: Optional[torch.Tensor] = None
+    grad: Optional[torch.Tensor] = None
+    launches: dict = field(default_factory=dict)
+
+
+# one graph per Z, its memory pool freed with Z; keyed by identity, since a
+# WeakKeyDictionary would compare tensors with ``==``
+_GRAPHS: WeakIdKeyDictionary = WeakIdKeyDictionary()
+
+
+def _kernel_counts() -> dict:
+    """Every launch counter of the kernels: ``(wrapper, attribute, path)`` →
+    count (``path`` ``None`` for ``launches`` and ``backward_launches``)."""
+    counts = {}
+    for fn in _COUNTED_KERNELS:
+        counts[fn, "launches", None] = fn.launches
+        counts[fn, "backward_launches", None] = fn.backward_launches
+        for path, n in getattr(fn, "path_launches", {}).items():
+            counts[fn, "path_launches", path] = n
+    return counts
+
+
+def _counts_since(before: dict) -> dict:
+    """The counters that moved since :func:`_kernel_counts` read ``before``,
+    by how much."""
+    after = _kernel_counts()
+    return {k: after[k] - n for k, n in before.items() if after[k] != n}
+
+
+def _add_counts(counts: dict, sign: int = 1) -> None:
+    for (fn, attr, path), n in counts.items():
+        if path is None:
+            setattr(fn, attr, getattr(fn, attr) + sign * n)
+        else:
+            fn.path_launches[path] += sign * n
+
+
+def _void_capture(graph: torch.cuda.CUDAGraph, pool: tuple, device: torch.device) -> None:
+    """End a capture that an operation refused (an error where it ran, or
+    at ``capture_end``). PyTorch's ``capture_end`` then raises before it
+    stops routing the device's allocations to the memory ``pool`` and before
+    the graph holds the pool, so both are undone here, as
+    ``torch.cuda.memory`` undoes its own pool contexts; the pool's blocks go
+    back with the next ``empty_cache``."""
+    with contextlib.suppress(RuntimeError):     # void, or ended already
+        graph.capture_end()
+    with contextlib.suppress(RuntimeError):     # where capture_end got that far
+        torch._C._cuda_endAllocateToPool(device.index, pool)
+    torch._C._cuda_releasePool(device.index, pool)
+
+
+def _capture(entry: _StepGraph, Z: torch.Tensor, X: torch.Tensor, state, alpha: float,
+             kwargs: dict) -> None:
+    """Record ``kl_value_and_grad_gram`` at ``Z`` on a static copy of ``X``
+    into ``entry``, on a side stream, into the graph's own memory pool.
+    Raises (``RuntimeError``) where an operation refuses capture; the
+    counters are then as they were."""
+    entry.X = X.detach().clone()
+    torch.cuda.synchronize(Z.device)
+    torch.cuda.empty_cache()        # the eager step's cached blocks, for the pool
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream(Z.device)
+    pool = torch.cuda.graph_pool_handle()
+    before = _kernel_counts()
+    with torch.cuda.device(Z.device), torch.cuda.stream(stream):
+        graph.capture_begin(pool, capture_error_mode="thread_local")
+        try:
+            loss, grad = kl_value_and_grad_gram(Z, entry.X, state, alpha, **kwargs)
+            graph.capture_end()
+        except RuntimeError:
+            _add_counts(_counts_since(before), -1)
+            _void_capture(graph, pool, Z.device)
+            raise
+    entry.graph, entry.loss, entry.grad = graph, loss, grad
+    entry.launches = _counts_since(before)
+
+
+def _gram_value_and_grad(Z: torch.Tensor, X: torch.Tensor, state, alpha: float,
+                         objective: str, *, full_set_size: Optional[int],
+                         example_block: Optional[int]):
+    """``(loss, dL/dZ)`` of :func:`kl_value_and_grad_gram` for
+    :func:`optimize_step`: on a CUDA ``Z`` from ``Z``'s graph (eager at a new
+    key, captured at its second call, replayed after), elsewhere eager. The
+    loss is a fresh tensor; the gradient may be the graph's own buffer, good
+    until the next replay."""
+    kwargs = {"full_set_size": full_set_size, "example_block": example_block}
+    if Z.device.type != "cuda":
+        return kl_value_and_grad_gram(Z, X, state, alpha, **kwargs)
+    key = graph_key(Z, X, state, alpha, objective=objective, **kwargs)
+    entry = _GRAPHS.get(Z)
+    if entry is None or entry.key != key:
+        _GRAPHS[Z] = _StepGraph(key, (state.model, state.flat_params,
+                                      *state.batch_stats.values()))
+        return kl_value_and_grad_gram(Z, X, state, alpha, **kwargs)
+    if entry.failed:
+        return kl_value_and_grad_gram(Z, X, state, alpha, **kwargs)
+    if entry.graph is None:
+        try:
+            _capture(entry, Z, X, state, alpha, kwargs)
+        except RuntimeError as exc:
+            entry.X = None
+            entry.failed = True
+            _STEP_COUNTERS.graph_fallbacks += 1
+            warnings.warn(f"the gram Z step could not be captured as a CUDA graph and runs "
+                          f"eager for this Z, batch shape and settings: {exc}",
+                          RuntimeWarning, stacklevel=3)
+            return kl_value_and_grad_gram(Z, X, state, alpha, **kwargs)
+        _STEP_COUNTERS.graph_captures += 1
+    else:
+        _add_counts(entry.launches)
+    with span("z_step.graph"):
+        entry.X.copy_(X)
+        entry.graph.replay()
+        loss = entry.loss.clone()
+    _STEP_COUNTERS.graph_replays += 1
+    return loss, entry.grad
+
+
 def optimize_step(Z: torch.Tensor, X: torch.Tensor, state, alpha: float,
                   optimizer: torch.optim.Optimizer, *, objective: str = "gram",
                   full_set_size: Optional[int] = None,
@@ -622,14 +808,21 @@ def optimize_step(Z: torch.Tensor, X: torch.Tensor, state, alpha: float,
     ``probes``: the stochastic objectives' probes, or a generator to draw
     fresh ones from. ``matfree``: the matfree objective's knobs
     (``cg_tol``, ``cg_maxiter``, ``precond_rank``, ``precond_power``,
-    ``precond_sketch``, ``cg_example_block``)."""
+    ``precond_sketch``, ``cg_example_block``).
+
+    The gram objectives on a CUDA ``Z`` replay a CUDA graph of the
+    value-and-grad (module docstring); Adam's step stays eager. Counters:
+    ``optimize_step.calls``, ``.graph_captures``, ``.graph_replays`` (the
+    capturing call's replay included) and ``.graph_fallbacks`` (keys whose
+    capture failed)."""
+    _STEP_COUNTERS.calls += 1
     with span("z_step"):
         if objective in ("gram", "gram_chunked"):
             if objective == "gram_chunked":
                 example_block = example_block or 4
-            loss, grad = kl_value_and_grad_gram(Z, X, state, alpha,
-                                                full_set_size=full_set_size,
-                                                example_block=example_block)
+            loss, grad = _gram_value_and_grad(Z, X, state, alpha, objective,
+                                              full_set_size=full_set_size,
+                                              example_block=example_block)
         elif objective == "dense":
             z = Z.detach().requires_grad_()
             with torch.enable_grad():
@@ -653,6 +846,13 @@ def optimize_step(Z: torch.Tensor, X: torch.Tensor, state, alpha: float,
         optimizer.step()
         Z.grad = None
         return loss
+
+
+optimize_step.calls = optimize_step.graph_captures = 0
+optimize_step.graph_replays = optimize_step.graph_fallbacks = 0
+# where the step counts, whatever a caller rebinds the module's name
+# ``optimize_step`` to (a wrapper that calls it, say)
+_STEP_COUNTERS = optimize_step
 
 
 @torch.no_grad()
@@ -780,4 +980,5 @@ def train_inducing_points(state, z_init: torch.Tensor, batches: Iterable, *,
         if checkpoint_dir and (step + 1) % checkpoint_every == 0 \
                 and step + 1 < num_steps:
             save_array(Z, checkpoint_dir, checkpoint_name, step + 1)
+    _GRAPHS.pop(Z, None)     # Z's graph and its memory pool now, not when the caller drops Z
     return Z
